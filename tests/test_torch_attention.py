@@ -1,0 +1,97 @@
+"""Port parity: matcha_tpu_torch.ops.attention vs the JAX einsum path.
+
+The plain version runs on the CPU and is held against
+``matcha_tpu.ops.attention.masked_self_attention(backend="einsum")`` and a
+float64 numpy oracle (mirroring tests/test_attention.py:64,85).  fp32 on
+both sides: tolerance 1e-5, the size of fp32 summation-order differences.
+
+The hand-written CUDA kernel runs only on the card: its tests carry the
+``cuda`` marker and skip where no CUDA device exists.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from matcha_tpu.ops.attention import masked_self_attention as jax_attention
+from matcha_tpu_torch.ops import attention as ta
+
+
+def _inputs(seed, b=2, h=3, t=16, d=8):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3))
+    valid = np.zeros((b, t), np.float32)
+    valid[0, :10] = 1.0
+    valid[1, :] = 1.0
+    return q, k, v, valid
+
+
+def _oracle(q, k, v, valid):
+    logits = np.einsum("bhqd,bhkd->bhqk", q, k).astype(np.float64) / math.sqrt(q.shape[-1])
+    logits = np.where(valid[:, None, None, :] > 0, logits, -np.inf)
+    w = np.exp(logits - logits.max(axis=-1, keepdims=True))
+    return np.einsum("bhqk,bhkd->bhqd", w / w.sum(axis=-1, keepdims=True), v)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("backend", ["auto", "flash", "einsum"])
+def test_matches_jax_einsum_with_padding(seed, backend):
+    q, k, v, valid = _inputs(seed)
+    ours = ta.masked_self_attention(*map(torch.from_numpy, (q, k, v, valid)), backend=backend).numpy()
+    ref = np.asarray(jax_attention(*map(jnp.asarray, (q, k, v, valid)), backend="einsum"))
+    np.testing.assert_allclose(ours, ref, atol=1e-5)
+    np.testing.assert_allclose(ours, _oracle(q, k, v, valid), atol=1e-5)
+
+
+def test_padded_rows_are_finite():
+    # padded QUERY rows still attend valid keys — no all-masked softmax
+    q = torch.ones((1, 1, 4, 8))
+    valid = torch.tensor([[1.0, 1.0, 0.0, 0.0]])
+    assert torch.isfinite(ta.masked_self_attention(q, q, q, valid)).all()
+
+
+def test_cpu_tensor_takes_plain_version_without_launch():
+    q, k, v, valid = map(torch.from_numpy, _inputs(3))
+    before = ta.masked_attention_fwd_count.launches
+    out = ta.masked_attention_fwd(q, k, v, valid)
+    assert torch.equal(out, ta.masked_self_attention_plain(q, k, v, valid))
+    assert ta.masked_attention_fwd_count.launches == before
+
+
+def test_unknown_backend_raises():
+    q = torch.zeros((1, 1, 2, 4))
+    with pytest.raises(ValueError):
+        ta.masked_self_attention(q, q, q, torch.ones((1, 2)), backend="sdpa")
+
+
+def test_bf16_plain_output_dtype():
+    q, k, v, valid = map(torch.from_numpy, _inputs(4))
+    out = ta.masked_self_attention_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(), valid)
+    assert out.dtype == torch.bfloat16
+    # bf16 inputs and bf16 weights: within bf16 rounding of the fp32 result
+    np.testing.assert_allclose(
+        out.float().numpy(), ta.masked_self_attention_plain(q, k, v, valid).numpy(), atol=5e-2
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 6, 256, 48), (16, 5, 512, 64), (2, 6, 4000, 48), (3, 5, 333, 64), (2, 2, 37, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_card(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel runs only on a card")
+    b, h, t, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype)) for _ in range(3))
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    lengths[0] = 1
+    valid = (torch.arange(t, device="cuda")[None] < lengths[:, None]).float()
+    out = ta.masked_attention_fwd(q, k, v, valid)
+    torch.cuda.synchronize()
+    ref = ta.masked_self_attention_plain(q.float(), k.float(), v.float(), valid)
+    # fp32: summation order and exp2 vs exp; bf16: rounding of the output
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert (out.float() - ref).abs().max().item() <= tol

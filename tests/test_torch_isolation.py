@@ -1,0 +1,51 @@
+"""The port stands alone: no JAX, no flax/optax, nothing of matcha_tpu/tools.
+
+An AST scan of every module of ``matcha_tpu_torch/`` and of
+``chip_smoke.py`` (imports anywhere in a file, lazy ones included).
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "matcha_tpu", "tools")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _port_files():
+    files = sorted((ROOT / "matcha_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_scan_covers_the_port():
+    files = _port_files()
+    assert (ROOT / "chip_smoke.py").exists()
+    assert any(f.name == "inference.py" for f in files)
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_synthesizer_without_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from matcha_tpu_torch.inference import MatchaSynthesizer
+    from matcha_tpu_torch.models.config import tiny_config
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MatchaSynthesizer(tiny_config(), params={})
