@@ -93,7 +93,7 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device: the synthesizer runs on the card; pass "
+                "no CUDA device: the port runs on the card; pass "
                 "device='cpu' to run the plain versions on the CPU"
             )
         device = "cuda"

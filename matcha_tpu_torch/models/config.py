@@ -113,8 +113,10 @@ class MatchaConfig:
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
     cfm: CFMConfig = field(default_factory=CFMConfig)
     data_statistics: DataStatistics = field(default_factory=DataStatistics)
-    # MAS implementation; read by the training path, which the port has not
-    # reached yet.  Kept so a checkpoint's config.json round-trips.
+    # MAS implementation of the training path.  In the port "auto", "pallas"
+    # and "pallas_shard_map" send a CUDA tensor to the hand-written MAS
+    # kernel (ops/csrc/mas.cu); "scan" asks for the plain PyTorch version.
+    # A tensor on the CPU always takes the plain version.
     mas_backend: str = "auto"
     # Self-attention implementation for the encoder and decoder blocks.  In
     # the port "auto" and "flash" both send a CUDA tensor to the hand-written

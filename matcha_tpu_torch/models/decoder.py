@@ -13,6 +13,13 @@ Time-major (B, T, C) with (B, T) masks halved by ``mask[:, ::2]``.  The
 submodules carry the reference torch names (``down_blocks.{i}.0`` resnet,
 ``.1.{b}`` transformer blocks, ``.2`` down/upsample ...), so the
 state_dict is the reference layout.  ``ConformerBlock`` is not ported yet.
+
+Training mode.  ``Decoder.forward`` takes ``gen``, a ``torch.Generator`` on
+the activations' device: with one, dropout runs after each attention output
+projection and inside each FFN (JAX ``decoder.py:171,217``); ``gen=None`` is
+the deterministic pass.  Training keeps unmasked GroupNorm statistics
+(``masked_norm=False``).  ``DecoderConfig.remat`` is not ported: torch's
+checkpoint does not replay a custom generator's dropout masks.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from matcha_tpu_torch.models.config import DecoderConfig
-from matcha_tpu_torch.models.layers import Conv1d, ConvTranspose1d, GroupNorm, LayerNorm, Linear
+from matcha_tpu_torch.models.layers import (
+    Conv1d, ConvTranspose1d, GroupNorm, LayerNorm, Linear, dropout,
+)
 from matcha_tpu_torch.ops.attention import masked_self_attention
 
 
@@ -114,34 +123,36 @@ class SnakeBeta(nn.Module):
 class FeedForward(nn.Module):
     """SnakeBeta FFN, mult 4 (reference transformer.py FeedForward)."""
 
-    def __init__(self, dim, mult=4, dropout=0.0, dtype=torch.float32):
+    def __init__(self, dim, mult=4, p_dropout=0.0, dtype=torch.float32):
         super().__init__()
+        self.p_dropout = p_dropout
+        # index 1 holds the reference's Dropout; it has no weights
         self.net = nn.ModuleList([
-            SnakeBeta(dim, dim * mult, dtype), nn.Dropout(dropout), Linear(dim * mult, dim, dtype=dtype)
+            SnakeBeta(dim, dim * mult, dtype), nn.Identity(), Linear(dim * mult, dim, dtype=dtype)
         ])
 
-    def forward(self, x):
-        for layer in self.net:
-            x = layer(x)
-        return x
+    def forward(self, x, gen=None):
+        return self.net[2](dropout(self.net[0](x), self.p_dropout, gen))
 
 
 class Attention(nn.Module):
     """Self-attention with bias-free q/k/v projections (diffusers layout)."""
 
-    def __init__(self, dim, num_heads, head_dim, dropout=0.0, dtype=torch.float32,
+    def __init__(self, dim, num_heads, head_dim, p_dropout=0.0, dtype=torch.float32,
                  attn_backend="auto"):
         super().__init__()
         inner = num_heads * head_dim
+        self.p_dropout = p_dropout
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.attn_backend = attn_backend
         self.to_q = Linear(dim, inner, bias=False, dtype=dtype)
         self.to_k = Linear(dim, inner, bias=False, dtype=dtype)
         self.to_v = Linear(dim, inner, bias=False, dtype=dtype)
-        self.to_out = nn.ModuleList([Linear(inner, dim, dtype=dtype), nn.Dropout(dropout)])
+        # index 1 holds the reference's Dropout; it has no weights
+        self.to_out = nn.ModuleList([Linear(inner, dim, dtype=dtype), nn.Identity()])
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, gen=None):
         b, t, _ = x.shape
 
         def split(y):
@@ -152,23 +163,23 @@ class Attention(nn.Module):
             backend=self.attn_backend,
         )
         out = out.transpose(1, 2).reshape(b, t, self.num_heads * self.head_dim)
-        return self.to_out[1](self.to_out[0](out))
+        return dropout(self.to_out[0](out), self.p_dropout, gen)
 
 
 class DecoderTransformerBlock(nn.Module):
     """Pre-norm block: LN → attention → LN → SnakeBeta FFN, residual both."""
 
-    def __init__(self, dim, num_heads, head_dim, dropout=0.0, dtype=torch.float32,
+    def __init__(self, dim, num_heads, head_dim, p_dropout=0.0, dtype=torch.float32,
                  attn_backend="auto"):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5, dtype=dtype)
-        self.attn1 = Attention(dim, num_heads, head_dim, dropout, dtype, attn_backend)
+        self.attn1 = Attention(dim, num_heads, head_dim, p_dropout, dtype, attn_backend)
         self.norm3 = LayerNorm(dim, eps=1e-5, dtype=dtype)
-        self.ff = FeedForward(dim, dropout=dropout, dtype=dtype)
+        self.ff = FeedForward(dim, p_dropout=p_dropout, dtype=dtype)
 
-    def forward(self, x, mask):
-        x = x + self.attn1(self.norm1(x), mask)
-        return x + self.ff(self.norm3(x))
+    def forward(self, x, mask, gen=None):
+        x = x + self.attn1(self.norm1(x), mask, gen)
+        return x + self.ff(self.norm3(x), gen)
 
 
 class Downsample1D(nn.Module):
@@ -203,6 +214,11 @@ class Decoder(nn.Module):
             raise NotImplementedError(f"decoder block_type {cfg.block_type!r} is not ported")
         if cfg.bf16_norm_stats:
             raise NotImplementedError("bf16_norm_stats is not ported: norms reduce in fp32")
+        if cfg.remat:
+            raise NotImplementedError(
+                "decoder remat is not ported: torch's checkpoint does not replay a "
+                "torch.Generator's dropout masks"
+            )
         self.cfg = cfg
         self.dtype = dtype
         self.in_channels = in_channels
@@ -247,9 +263,10 @@ class Decoder(nn.Module):
         # fp32 island: the velocity feeds fp32 ODE math (true fp32 matmul)
         self.final_proj = Conv1d(up_ch[-1], out_channels, 1, dtype=torch.float32)
 
-    def forward(self, x, mask, mu, t, masked_norm: bool = False):
+    def forward(self, x, mask, mu, t, masked_norm: bool = False, gen=None):
         """x, mu: (B, T, n_feats); mask: (B, T) with T divisible by
-        2**num_downsamples; t: (B,) or scalar.  Returns (B, T, n_feats)."""
+        2**num_downsamples; t: (B,) or scalar; ``gen`` turns dropout on.
+        Returns (B, T, n_feats)."""
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device).expand(x.shape[0])
         t_emb = self.time_mlp(sinusoidal_time_embedding(t, self.in_channels))
         h = torch.cat([x, mu], dim=-1).to(self.carry)
@@ -259,7 +276,7 @@ class Decoder(nn.Module):
             m = masks[-1]
             h = resnet(h, m, t_emb, masked_norm)
             for blk in tblocks:
-                h = blk(h, m)
+                h = blk(h, m, gen)
             skips.append(h)
             h = down(h * m[..., None].to(self.dtype)).to(self.carry)
             if i < len(self.down_blocks) - 1:
@@ -269,14 +286,14 @@ class Decoder(nn.Module):
         for resnet, tblocks in self.mid_blocks:
             h = resnet(h, m, t_emb, masked_norm)
             for blk in tblocks:
-                h = blk(h, m)
+                h = blk(h, m, gen)
 
         for resnet, tblocks, up in self.up_blocks:
             m = masks.pop()
             h = torch.cat([h, skips.pop()], dim=-1)
             h = resnet(h, m, t_emb, masked_norm)
             for blk in tblocks:
-                h = blk(h, m)
+                h = blk(h, m, gen)
             h = up(h * m[..., None].to(self.dtype)).to(self.carry)
 
         h = self.final_block(h, mask, masked_norm)

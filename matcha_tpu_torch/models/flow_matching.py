@@ -1,9 +1,9 @@
-"""Optimal-transport conditional flow matching: the synthesis half.
+"""Optimal-transport conditional flow matching: training loss and synthesis.
 
-PyTorch counterpart of ``matcha_tpu/models/flow_matching.py``: fixed-grid
-ODE solvers (euler / midpoint / rk4 with Kutta's 3/8 rule / heun3) and
-``cfm_synthesise``, integrating dx/dt = v(x, t | mu) from t=0 to 1 starting
-at z = mu + noise.  The training loss waits for the training path.
+PyTorch counterpart of ``matcha_tpu/models/flow_matching.py``: the masked
+OT-CFM training loss ``cfm_loss``, fixed-grid ODE solvers (euler /
+midpoint / rk4 with Kutta's 3/8 rule / heun3) and ``cfm_synthesise``,
+integrating dx/dt = v(x, t | mu) from t=0 to 1 starting at z = mu + noise.
 
 Noise.  The JAX package draws its seeded noise with threefry, which torch
 cannot reproduce, so the port's seeded audio is not bit-equal to the JAX
@@ -68,6 +68,40 @@ def odeint_fixed(f: Callable, x0: torch.Tensor, t_span: torch.Tensor,
         t = t_span[i]
         x = step(f, x, t, t_span[i + 1] - t)
     return x
+
+
+def cfm_loss(estimator: Callable, x1: torch.Tensor, mask: torch.Tensor, mu: torch.Tensor,
+             generator: torch.Generator | None, *, sigma_min: float = 1e-4,
+             use_mu_prior: bool = True, t_noise=None,
+             row_weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked OT-CFM loss (reference: flow_matching.py:65-112).
+
+    ``estimator(x, mask, mu, t)`` → velocity; x1, mu: (B, T, C), mu already
+    detached by the caller; mask (B, T).  t ~ U[0, 1) per row and the noise
+    are drawn from ``generator`` unless ``t_noise`` = ((B, 1, 1) t,
+    (B, T, C) noise) fixes them (the cross-framework parity hook).
+    ``row_weights`` (B,) weights each row's squared error (0 excludes a
+    repeat-filled row); the estimator still sees the binary mask.
+    """
+    b = x1.shape[0]
+    if t_noise is not None:
+        t, noise = t_noise
+    elif generator is None:
+        raise ValueError("cfm_loss needs a generator or a fixed t_noise")
+    else:
+        t = torch.rand((b, 1, 1), generator=generator, device=x1.device, dtype=x1.dtype)
+        noise = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
+    x0 = mu + noise if use_mu_prior else noise
+    y = (1.0 - (1.0 - sigma_min) * t) * x0 + t * x1
+    u = x1 - (1.0 - sigma_min) * x0
+
+    pred = estimator(y, mask, mu, t[:, 0, 0])
+    m = mask[..., None]
+    sq = torch.square((pred - u) * m)
+    if row_weights is None:
+        return sq.sum() / (m.sum() * x1.shape[-1])
+    w = row_weights[:, None, None]
+    return (sq * w).sum() / ((m * w).sum() * x1.shape[-1])
 
 
 def synthesis_noise_row(t: int, c: int, seed: int = DEFAULT_NOISE_SEED) -> torch.Tensor:

@@ -22,6 +22,20 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def dropout(x, p: float, generator: torch.Generator | None):
+    """flax ``nn.Dropout``: keep each element with probability 1 − p and
+    scale it by 1/(1 − p).  ``generator=None`` is the deterministic pass
+    (identity), as is p = 0.  The mask is drawn from ``generator`` on x's
+    device; torch's global RNG is never used.
+    """
+    if generator is None or p == 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Conv1d(nn.Conv1d):
     """Conv over the time axis of (B, T, C), computed in ``dtype``.
 

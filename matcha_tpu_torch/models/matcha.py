@@ -1,21 +1,28 @@
-"""MatchaTTS-24k, synthesis half: encoder, CFM decoder, speaker tables.
+"""MatchaTTS-24k: encoder, monotonic alignment search, CFM decoder.
 
-PyTorch counterpart of ``matcha_tpu/models/matcha.py`` (``encode``,
-``decode``, ``speaker_embeddings``).  ``compute_losses`` and MAS wait for the
-training path.  ``init_params`` draws a random state_dict at any config
+PyTorch counterpart of ``matcha_tpu/models/matcha.py``: the training losses
+(``compute_losses``: duration, prior and CFM loss) and the synthesis halves
+(``encode``, ``decode``, ``speaker_embeddings``).  The encoder, MAS and the
+prior work at hop 128 (fine mel), the decoder at hop 256; MAS and the prior
+are fp32 islands.  ``init_params`` draws a random state_dict at any config
 from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from matcha_tpu_torch.models.config import MatchaConfig
 from matcha_tpu_torch.models.decoder import Decoder
-from matcha_tpu_torch.models.flow_matching import cfm_synthesise
+from matcha_tpu_torch.models.flow_matching import cfm_loss, cfm_synthesise
 from matcha_tpu_torch.models.text_encoder import TextEncoder
+from matcha_tpu_torch.ops.mas import durations_from_indices, maximum_path_indices
 from matcha_tpu_torch.text.symbols import N_VOCAB
+from matcha_tpu_torch.utils.model_math import downsample_time, sequence_mask
+
+QUANTILES = (0.5, 0.9, 0.99)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -24,6 +31,38 @@ def compute_dtype(name: str) -> torch.dtype:
     if name not in DTYPES:
         raise ValueError(f"compute dtype {name!r} not in {tuple(DTYPES)}")
     return DTYPES[name]
+
+
+def log_prior_scores(mu_x: torch.Tensor, y_fine: torch.Tensor) -> torch.Tensor:
+    """(B, Tx, C) x (B, Ty, C) fp32 → (B, Tx, Ty) Gaussian log-prior −‖y−mu‖²/2.
+
+    Expanded into y², mu·y, mu² so the cross term is one matmul
+    (reference: matcha_tts.py:184-201).  It must be true fp32: on the card
+    that needs TF32 off for matmuls, which the trainer sees to (the JAX
+    package asks for precision=HIGHEST, PARITY.md §2.6b).
+    """
+    y_sq = -0.5 * y_fine.square().sum(dim=-1)  # (B, Ty)
+    mu_sq = -0.5 * mu_x.square().sum(dim=-1)  # (B, Tx)
+    cross = torch.einsum("bic,bjc->bij", mu_x, y_fine)
+    return y_sq[:, None, :] + cross + mu_sq[:, :, None]
+
+
+def linear_quantiles(x: torch.Tensor, qs=QUANTILES) -> list[torch.Tensor]:
+    """``jnp.quantile(x, qs)`` (linear interpolation) over all elements.
+
+    One sort of the flattened tensor: ``torch.quantile`` refuses inputs
+    above 2**24 elements, which the prior error nears at full frame budgets.
+    """
+    srt = torch.sort(x.reshape(-1).float()).values
+    n = srt.numel()
+    out = []
+    for q in qs:
+        pos = q * (n - 1)
+        lo = int(pos)
+        hi = min(lo + 1, n - 1)
+        w = pos - lo
+        out.append(srt[lo] * (1.0 - w) + srt[hi] * w)
+    return out
 
 
 class CFM(nn.Module):
@@ -50,6 +89,91 @@ class MatchaTTS(nn.Module):
             cfg.decoder, 2 * cfg.n_feats, cfg.n_feats, dtype=dtype,
             attn_backend=cfg.attention_backend,
         ))
+
+    def forward(self, *args, **kwargs):
+        """The training losses, as the JAX module's ``__call__``."""
+        return self.compute_losses(*args, **kwargs)
+
+    def compute_losses(self, x, x_lengths, y, y_lengths, y_fine, y_fine_lengths, spks,
+                       generator: torch.Generator | None = None, *,
+                       deterministic: bool = False, cfm_t_noise=None, row_weights=None):
+        """Duration, prior and CFM losses of one padded batch
+        (reference: matcha_tts.py:64-163; JAX ``compute_losses``).
+
+        x (B, Tx) ids; y (B, Ty, C) coarse mel; y_fine (B, 2·Ty, C) fine mel;
+        lengths (B,); spks (B,).  ``generator`` (on the batch's device) draws
+        the dropout masks and CFM's t and noise; ``deterministic`` turns
+        dropout off; ``cfm_t_noise`` fixes t and noise.  ``row_weights`` (B,)
+        weight each row's losses (0 for repeat-filled rows).  Returns the
+        losses, their sum ``loss``, ``mas_frames`` and the abs-error
+        quantile diagnostics.
+        """
+        cfg = self.cfg
+        dev = y.device
+        w = (torch.ones((x.shape[0],), dtype=torch.float32, device=dev)
+             if row_weights is None else row_weights.float())
+        x_mask = sequence_mask(x_lengths, x.shape[1]).float()
+        y_mask = sequence_mask(y_lengths, y.shape[1]).float()
+        y_fine_mask = sequence_mask(y_fine_lengths, y_fine.shape[1]).float()
+        drop = None if deterministic else generator
+
+        spk_enc, spk_dur = self.speaker_embeddings(spks)
+        mu_x, logw = self.encoder(x, x_mask, spk_enc, spk_dur, drop)
+
+        # ---- MAS alignment (fp32, no gradients) ----
+        mu_x32 = mu_x.float()
+        y_fine32 = y_fine.float()
+        with torch.no_grad():
+            log_prior = log_prior_scores(mu_x32.detach(), y_fine32)
+            idx = maximum_path_indices(log_prior, x_lengths, y_fine_lengths, cfg.mas_backend)
+            del log_prior
+
+        # ---- duration loss (+2 keeps log targets above 1; inference undoes it) ----
+        mas_durations = durations_from_indices(idx, x.shape[1])
+        logw_target = torch.log(2.0 + mas_durations) * x_mask
+        dur_loss = (F.huber_loss(logw, logw_target, reduction="none",
+                                 delta=cfg.duration_loss_threshold) * w[:, None]).sum()
+        dur_loss = dur_loss / (x_lengths * w).sum()
+
+        # ---- prior loss (fine resolution, fp32): a gather, not a path matmul ----
+        gather_idx = idx.long().clamp(min=0)[:, :, None].expand(-1, -1, mu_x32.shape[-1])
+        mu_y_fine = torch.gather(mu_x32, 1, gather_idx) * y_fine_mask[..., None]
+        if cfg.prior_loss:
+            m = y_fine_mask[..., None]
+            prior_loss = (F.huber_loss(mu_y_fine * m, y_fine32 * m, reduction="none",
+                                       delta=cfg.prior_loss_threshold) * w[:, None, None]).sum()
+            prior_loss = prior_loss / (y_fine_mask * w[:, None]).sum()
+        else:
+            prior_loss = torch.zeros((), dtype=torch.float32, device=dev)
+
+        # ---- CFM loss (coarse resolution, prior detached) ----
+        mu_y = downsample_time(mu_y_fine)[:, : y.shape[1]].detach()
+        estimator = self.decoder.estimator
+
+        def velocity(xt, mask, mu, t):
+            return estimator(xt, mask, mu, t, masked_norm=False, gen=drop)
+
+        diff_loss = cfm_loss(velocity, y, y_mask, mu_y, generator,
+                             sigma_min=cfg.cfm.sigma_min, use_mu_prior=cfg.cfm.use_mu_prior,
+                             t_noise=cfm_t_noise, row_weights=w)
+
+        # abs-error quantiles, to tune the Huber thresholds (matcha_tts.py:166-182)
+        with torch.no_grad():
+            dur_err = torch.where(x_mask > 0, (logw - logw_target).abs(), 0.0)
+            prior_err = (mu_y_fine - y_fine32).abs() * y_fine_mask[..., None]
+            diagnostics = {}
+            for name, err in (("duration", dur_err), ("prior", prior_err)):
+                for q, v in zip(QUANTILES, linear_quantiles(err)):
+                    diagnostics[f"abs_error_quantiles/{name}_{q}"] = v
+
+        return {
+            "diff_loss": diff_loss,
+            "dur_loss": dur_loss,
+            "prior_loss": prior_loss,
+            "loss": diff_loss + dur_loss + prior_loss,
+            "mas_frames": (mas_durations * x_mask).sum(),
+            **diagnostics,
+        }
 
     def encode(self, x, x_mask, spk_enc, spk_dur):
         """Text → (mu_x, raw durations in fine frames).

@@ -13,6 +13,13 @@ carry the reference torch names (``conv_layers``, ``attn_layers``,
 ``proj_m.0`` ...), so the state_dict is the reference layout.  Under bf16
 compute with ``fp32_residual`` the embedding / residual / norm stream stays
 fp32 and only conv and dense inputs are bf16, as in the JAX package.
+
+Training mode.  Every ``forward`` takes ``gen``, a ``torch.Generator`` on the
+activations' device: with one, dropout runs where the JAX module has it
+(prenet, attention probabilities, both residual branches, the FFN, the
+duration predictor) and the attention takes the plain einsum so that its
+probabilities can be dropped; ``gen=None`` is the deterministic pass.  The
+duration predictor reads a detached copy of the encoder output.
 """
 
 from __future__ import annotations
@@ -25,8 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from matcha_tpu_torch.models.config import DurationPredictorConfig, EncoderConfig
-from matcha_tpu_torch.models.layers import Conv1d, Linear
-from matcha_tpu_torch.ops.attention import masked_self_attention
+from matcha_tpu_torch.models.layers import Conv1d, Linear, dropout
+from matcha_tpu_torch.ops.attention import masked_self_attention, masked_self_attention_plain
 
 
 class ChannelLayerNorm(nn.Module):
@@ -53,10 +60,11 @@ class ChannelLayerNorm(nn.Module):
 class ConvSiluNorm(nn.Module):
     """Residual conv prenet: n x [masked conv → LayerNorm → SiLU]."""
 
-    def __init__(self, channels, out_channels, kernel_size, n_layers,
+    def __init__(self, channels, out_channels, kernel_size, n_layers, p_dropout=0.0,
                  dtype=torch.float32, f32_carry=False):
         super().__init__()
         self.dtype = dtype
+        self.p_dropout = p_dropout
         self.conv_layers = nn.ModuleList(
             Conv1d(channels, channels, kernel_size, dtype=dtype) for _ in range(n_layers)
         )
@@ -65,11 +73,11 @@ class ConvSiluNorm(nn.Module):
         )
         self.proj = Conv1d(channels, out_channels, 1, dtype=dtype)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, gen=None):
         m = mask[..., None].to(self.dtype)
         h = x
         for conv, norm in zip(self.conv_layers, self.norm_layers):
-            h = F.silu(norm(conv(h * m)))
+            h = dropout(F.silu(norm(conv(h * m))), self.p_dropout, gen)
         return (x + self.proj(h)) * m
 
 
@@ -96,9 +104,10 @@ class RopeSelfAttention(nn.Module):
     """Multi-head self-attention with rotary embeddings on half the head
     dims; kernel-1 conv projections (reference: text_encoder.py:176-243)."""
 
-    def __init__(self, channels, n_heads, rope_max_len, dtype=torch.float32,
+    def __init__(self, channels, n_heads, rope_max_len, p_dropout=0.0, dtype=torch.float32,
                  attn_backend="auto"):
         super().__init__()
+        self.p_dropout = p_dropout
         self.channels = channels
         self.n_heads = n_heads
         self.head_dim = channels // n_heads
@@ -113,7 +122,7 @@ class RopeSelfAttention(nn.Module):
         self.register_buffer("rope_cos", torch.from_numpy(cos), persistent=False)
         self.register_buffer("rope_sin", torch.from_numpy(sin), persistent=False)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, gen=None):
         b, t, _ = x.shape
 
         def split_heads(y):
@@ -125,9 +134,14 @@ class RopeSelfAttention(nn.Module):
         sin = self.rope_sin.to(self.dtype)
         q = apply_rope(q, cos, sin, self.rot_dim)
         k = apply_rope(k, cos, sin, self.rot_dim)
-        out = masked_self_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), mask, backend=self.attn_backend
-        )
+        if gen is None or self.p_dropout == 0.0:
+            out = masked_self_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), mask, backend=self.attn_backend
+            )
+        else:  # training: dropout on the attention probabilities
+            out = masked_self_attention_plain(
+                q, k, v, mask, weights_dropout=lambda w: dropout(w, self.p_dropout, gen)
+            )
         out = out.transpose(1, 2).reshape(b, t, self.channels)
         return self.conv_o(out)
 
@@ -136,15 +150,16 @@ class ConvFFN(nn.Module):
     """Position-wise FFN with kernel-k convs (reference: text_encoder.py:246-258)."""
 
     def __init__(self, in_channels, filter_channels, out_channels, kernel_size,
-                 dtype=torch.float32):
+                 p_dropout=0.0, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.p_dropout = p_dropout
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size, dtype=dtype)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size, dtype=dtype)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, gen=None):
         m = mask[..., None].to(self.dtype)
-        h = torch.relu(self.conv_1(x * m))
+        h = dropout(torch.relu(self.conv_1(x * m)), self.p_dropout, gen)
         return self.conv_2(h * m) * m
 
 
@@ -152,33 +167,37 @@ class TransformerEncoder(nn.Module):
     """Post-norm stack: [SDPA → LN → convFFN → LN] x n_layers."""
 
     def __init__(self, hidden_channels, filter_channels, n_heads, n_layers,
-                 kernel_size, rope_max_len, dtype=torch.float32,
+                 kernel_size, rope_max_len, p_dropout=0.0, dtype=torch.float32,
                  attn_backend="auto", f32_carry=False):
         super().__init__()
         self.dtype = dtype
+        self.p_dropout = p_dropout
         c = hidden_channels
         self.attn_layers = nn.ModuleList(
-            RopeSelfAttention(c, n_heads, rope_max_len, dtype=dtype, attn_backend=attn_backend)
+            RopeSelfAttention(c, n_heads, rope_max_len, p_dropout, dtype=dtype,
+                              attn_backend=attn_backend)
             for _ in range(n_layers)
         )
         self.norm_layers_1 = nn.ModuleList(
             ChannelLayerNorm(c, dtype=dtype, f32_out=f32_carry) for _ in range(n_layers)
         )
         self.ffn_layers = nn.ModuleList(
-            ConvFFN(c, filter_channels, c, kernel_size, dtype=dtype) for _ in range(n_layers)
+            ConvFFN(c, filter_channels, c, kernel_size, p_dropout, dtype=dtype)
+            for _ in range(n_layers)
         )
         self.norm_layers_2 = nn.ModuleList(
             ChannelLayerNorm(c, dtype=dtype, f32_out=f32_carry) for _ in range(n_layers)
         )
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, gen=None):
         m = mask[..., None].to(self.dtype)
+        p = self.p_dropout
         for attn, norm1, ffn, norm2 in zip(
             self.attn_layers, self.norm_layers_1, self.ffn_layers, self.norm_layers_2
         ):
             x = x * m
-            x = norm1(x + attn(x, mask))
-            x = norm2(x + ffn(x, mask))
+            x = norm1(x + dropout(attn(x, mask, gen), p, gen))
+            x = norm2(x + dropout(ffn(x, mask, gen), p, gen))
         return x * m
 
 
@@ -190,6 +209,7 @@ class DurationPredictor(nn.Module):
         super().__init__()
         fc = cfg.filter_channels
         self.dtype = dtype
+        self.p_dropout = cfg.p_dropout
         self.spk_proj = Linear(spk_emb_dim, 2 * fc, dtype=dtype)
         self.conv_layers = nn.ModuleList(
             Conv1d(in_channels if i == 0 else fc, fc, cfg.kernel_size, dtype=dtype)
@@ -202,13 +222,13 @@ class DurationPredictor(nn.Module):
         # the JAX package): a true-fp32 matmul here, see models/layers.py
         self.proj = Conv1d(fc, 1, 1, dtype=torch.float32)
 
-    def forward(self, x, mask, spk_emb):
+    def forward(self, x, mask, spk_emb, gen=None):
         gamma, beta = self.spk_proj(spk_emb)[:, None, :].chunk(2, dim=-1)
         m = mask[..., None].to(self.dtype)
         h = x
         for conv, norm in zip(self.conv_layers, self.norm_layers):
             h = norm(torch.relu(conv(h * m)))
-            h = h * gamma + beta
+            h = dropout(h * gamma + beta, self.p_dropout, gen)
         logw = self.proj(h.float() * mask[..., None])
         return logw[..., 0] * mask
 
@@ -228,13 +248,13 @@ class TextEncoder(nn.Module):
         self.carry = torch.float32 if self.f32_carry else dtype
         self.emb = nn.Embedding(n_vocab, c)
         self.prenet = (
-            ConvSiluNorm(c, c, cfg.prenet_kernel_size, cfg.prenet_layers,
+            ConvSiluNorm(c, c, cfg.prenet_kernel_size, cfg.prenet_layers, cfg.p_dropout,
                          dtype=dtype, f32_carry=self.f32_carry)
             if cfg.prenet else None
         )
         self.encoder = TransformerEncoder(
             c + spk_emb_dim, cfg.filter_channels, cfg.n_heads, cfg.n_layers,
-            cfg.kernel_size, cfg.rope_max_len, dtype=dtype,
+            cfg.kernel_size, cfg.rope_max_len, cfg.p_dropout, dtype=dtype,
             attn_backend=attn_backend, f32_carry=self.f32_carry,
         )
         # the mel head is an fp32 island: mu_x anchors the ODE
@@ -247,14 +267,15 @@ class TextEncoder(nn.Module):
             c + spk_emb_dim, spk_emb_dim, dp_cfg, dtype=dtype, f32_carry=self.f32_carry
         )
 
-    def forward(self, x_ids, x_mask, spk_enc, spk_dur):
+    def forward(self, x_ids, x_mask, spk_enc, spk_dur, gen=None):
         c = self.cfg.n_channels
         x = self.emb(x_ids).to(self.carry) * math.sqrt(c)
         if self.prenet is not None:
-            x = self.prenet(x, x_mask)
+            x = self.prenet(x, x_mask, gen)
         b, t, _ = x.shape
         spk = spk_enc[:, None, :].to(self.carry).expand(b, t, self.spk_emb_dim)
-        x = self.encoder(torch.cat([x, spk], dim=-1), x_mask)
+        x = self.encoder(torch.cat([x, spk], dim=-1), x_mask, gen)
         mu_x = self.proj_m(x.float()) * x_mask[..., None]
-        logw = self.proj_w(x, x_mask, spk_dur)
+        # the duration branch must not shape the acoustic representation
+        logw = self.proj_w(x.detach(), x_mask, spk_dur, gen)
         return mu_x, logw

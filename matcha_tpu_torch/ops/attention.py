@@ -20,6 +20,16 @@ fp32 runs exact fp32 FMAs, with no TF32 or bf16 downcast anywhere.  The JAX
 package sends only T >= 1024 to its kernel, a TPU measurement; the port
 sends every attention call on a CUDA tensor to its kernel, at any T.
 
+Gradients.  On a CUDA tensor that requires grad, the call goes through
+``MaskedAttention`` (a ``torch.autograd.Function``): its forward is the same
+kernel, which then also writes the (B, H, T) fp32 log-sum-exp, and its
+backward launches the two backward kernels of ``csrc/masked_attention_bwd.cu``
+(``masked_attention_bwd_dkv``, ``masked_attention_bwd_dq``), which replace
+the Pallas TPU backward (``_flash_attention_bwd_dkv`` and
+``_flash_attention_bwd_dq`` in the same file).  Without grad the forward
+writes no log-sum-exp.  On a CPU tensor autograd runs through the plain
+version.
+
 Dispatch.  A tensor on the CPU takes the plain version.  A CUDA tensor
 launches the kernel or raises; a build or launch failure is never hidden
 behind the plain version.  ``backend="einsum"`` asks for the plain version
@@ -38,31 +48,28 @@ BACKENDS = ("auto", "flash", "einsum")
 MAX_HEAD_DIM = 128
 
 masked_attention_fwd_count = LaunchCounter("masked_attention_fwd")
+masked_attention_bwd_dkv_count = LaunchCounter("masked_attention_bwd_dkv")
+masked_attention_bwd_dq_count = LaunchCounter("masked_attention_bwd_dq")
 
 
-def masked_self_attention_plain(q, k, v, key_valid):
+def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None):
     """Einsum + boolean key mask: the counterpart of ``attention.py:134-139``.
 
     Logits are fp32 (bf16 products are exact in fp32); the weights are cast
     to v's dtype before the second product, as in the JAX einsum path.
+    ``weights_dropout``, a function of the weights, is the training-mode
+    attention-prob dropout of the text encoder (``text_encoder.py:157-174``).
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     logits = logits.masked_fill(~(key_valid[:, None, None, :] > 0), float("-inf"))
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    if weights_dropout is not None:
+        weights = weights_dropout(weights)
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
 
-def masked_attention_fwd(q, k, v, key_valid):
-    """The kernel's wrapper: (B, H, T, D) q, k, v and a (B, T) key mask.
-
-    On a CUDA tensor: q, k, v must be contiguous, of one shape and of one
-    dtype (float32 or bfloat16), with 1 <= D <= 128; anything else raises.
-    The mask may be bool, integer or float (> 0 = valid).  On a CPU tensor
-    this is the plain version.
-    """
-    if not q.is_cuda:
-        return masked_self_attention_plain(q, k, v, key_valid)
+def _check_cuda_inputs(q, k, v, key_valid):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share a (B, H, T, D) shape: {q.shape}, {k.shape}, {v.shape}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -76,11 +83,70 @@ def masked_attention_fwd(q, k, v, key_valid):
         raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
     if tuple(key_valid.shape) != (b, t):
         raise ValueError(f"key_valid must be (B, T) = {(b, t)}, got {tuple(key_valid.shape)}")
-    valid_u8 = (key_valid > 0).to(torch.uint8).contiguous()
+    return (key_valid > 0).to(torch.uint8).contiguous()
+
+
+def _launch_fwd(q, k, v, valid_u8, with_lse: bool):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    kernels().masked_attention_fwd(q, k, v, valid_u8, out)
+    lse = torch.empty(q.shape[:3] if with_lse else (0,), dtype=torch.float32, device=q.device)
+    kernels().masked_attention_fwd(q, k, v, valid_u8, out, lse)
     masked_attention_fwd_count.add()
-    return out
+    return out, lse
+
+
+def masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8):
+    """The dk, dv kernel's wrapper: (B, H, T, D) CUDA tensors in one dtype,
+    the forward's (B, H, T) fp32 ``lse`` and ``delta = rowsum(dout·out)``,
+    a (B, T) uint8 key mask.  Returns (dk, dv)."""
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    kernels().masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8, dk, dv)
+    masked_attention_bwd_dkv_count.add()
+    return dk, dv
+
+
+def masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8):
+    """The dq kernel's wrapper; same inputs as ``masked_attention_bwd_dkv``."""
+    dq = torch.empty_like(q)
+    kernels().masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8, dq)
+    masked_attention_bwd_dq_count.add()
+    return dq
+
+
+class MaskedAttention(torch.autograd.Function):
+    """K1 forward, K1b backward, on contiguous CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid_u8):
+        out, lse = _launch_fwd(q, k, v, valid_u8, with_lse=True)
+        ctx.save_for_backward(q, k, v, valid_u8, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, valid_u8, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        dk, dv = masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8)
+        dq = masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8)
+        return dq, dk, dv, None
+
+
+def masked_attention_fwd(q, k, v, key_valid):
+    """The kernel's wrapper: (B, H, T, D) q, k, v and a (B, T) key mask.
+
+    On a CUDA tensor: q, k, v must be contiguous, of one shape and of one
+    dtype (float32 or bfloat16), with 1 <= D <= 128; anything else raises.
+    The mask may be bool, integer or float (> 0 = valid).  When grad is on
+    and q, k or v requires it, the result carries the kernel backward.  On
+    a CPU tensor this is the plain version.
+    """
+    if not q.is_cuda:
+        return masked_self_attention_plain(q, k, v, key_valid)
+    valid_u8 = _check_cuda_inputs(q, k, v, key_valid)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return MaskedAttention.apply(q, k, v, valid_u8)
+    return _launch_fwd(q, k, v, valid_u8, with_lse=False)[0]
 
 
 def masked_self_attention(q, k, v, key_valid, *, backend: str = "auto"):

@@ -7,36 +7,75 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/extension.h>
 
+#include <array>
 #include <cmath>
+#include <initializer_list>
 
 bool masked_attention_fwd_launch(const void* q, const void* k, const void* v,
-                                 const uint8_t* key_valid, void* out, int batch,
+                                 const uint8_t* key_valid, void* out, float* lse, int batch,
                                  int n_heads, int seq, int dim, bool bf16,
                                  float qk_scale_log2, cudaStream_t stream);
+bool masked_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                                     const void* dout, const float* lse, const float* delta,
+                                     const uint8_t* key_valid, void* dk, void* dv, int batch,
+                                     int n_heads, int seq, int dim, bool bf16,
+                                     cudaStream_t stream);
+bool masked_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
+                                    const void* dout, const float* lse, const float* delta,
+                                    const uint8_t* key_valid, void* dq, int batch, int n_heads,
+                                    int seq, int dim, bool bf16, cudaStream_t stream);
+long long mas_scratch_words(int batch, int tx, int ty);
+cudaError_t mas_launch(const float* value, const int* x_len, const int* y_len, int* idx,
+                       uint32_t* scratch, int batch, int tx, int ty, cudaStream_t stream);
 
-// q, k, v, out: contiguous (B, H, T, D), all float32 or all bfloat16, on one
-// CUDA device.  key_valid: contiguous (B, T) uint8, nonzero = valid key.
-// Writes out; allocates nothing.
-void masked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
-                          const torch::Tensor& v, const torch::Tensor& key_valid,
-                          const torch::Tensor& out) {
-  for (const torch::Tensor* t : {&q, &k, &v, &out}) {
-    TORCH_CHECK(t->is_cuda() && t->device() == q.device(), "tensors must share one CUDA device");
-    TORCH_CHECK(t->is_contiguous(), "q, k, v and out must be contiguous");
-    TORCH_CHECK(t->scalar_type() == q.scalar_type(), "q, k, v and out must share a dtype");
-    TORCH_CHECK(t->sizes() == q.sizes(), "q, k, v and out must share a (B, H, T, D) shape");
-  }
+namespace {
+
+// q, k, v and every tensor in `same`: contiguous (B, H, T, D), one dtype
+// (float32 or bfloat16), one CUDA device.  Returns (B, H, T, D).
+std::array<int64_t, 4> check_heads(const torch::Tensor& q,
+                                   std::initializer_list<const torch::Tensor*> same) {
   TORCH_CHECK(q.dim() == 4, "q must be (B, H, T, D)");
   TORCH_CHECK(q.scalar_type() == torch::kFloat32 || q.scalar_type() == torch::kBFloat16,
               "dtype must be float32 or bfloat16");
+  for (const torch::Tensor* t : same) {
+    TORCH_CHECK(t->is_cuda() && t->device() == q.device(), "tensors must share one CUDA device");
+    TORCH_CHECK(t->is_contiguous(), "attention tensors must be contiguous");
+    TORCH_CHECK(t->scalar_type() == q.scalar_type(), "attention tensors must share a dtype");
+    TORCH_CHECK(t->sizes() == q.sizes(), "attention tensors must share a (B, H, T, D) shape");
+  }
   const int64_t batch = q.size(0), n_heads = q.size(1), seq = q.size(2), dim = q.size(3);
   TORCH_CHECK(dim >= 1 && dim <= 128, "head dim must be in [1, 128]");
+  TORCH_CHECK(batch <= 65535 && n_heads <= 65535 && seq <= (1 << 30), "shape too large");
+  return {batch, n_heads, seq, dim};
+}
+
+void check_mask(const torch::Tensor& key_valid, const torch::Tensor& q, int64_t batch,
+                int64_t seq) {
   TORCH_CHECK(key_valid.is_cuda() && key_valid.device() == q.device() &&
                   key_valid.is_contiguous() && key_valid.scalar_type() == torch::kUInt8 &&
                   key_valid.dim() == 2 && key_valid.size(0) == batch &&
                   key_valid.size(1) == seq,
               "key_valid must be a contiguous (B, T) uint8 tensor on q's device");
-  TORCH_CHECK(batch <= 65535 && n_heads <= 65535 && seq <= (1 << 30), "shape too large");
+}
+
+void check_rows(const torch::Tensor& t, const torch::Tensor& q, const char* name) {
+  TORCH_CHECK(t.is_cuda() && t.device() == q.device() && t.is_contiguous() &&
+                  t.scalar_type() == torch::kFloat32 && t.dim() == 3 && t.size(0) == q.size(0) &&
+                  t.size(1) == q.size(1) && t.size(2) == q.size(2),
+              name, " must be a contiguous (B, H, T) float32 tensor on q's device");
+}
+
+}  // namespace
+
+// Writes out and, when lse has elements, the (B, H, T) fp32 log-sum-exp
+// the backward needs; an empty lse skips it.  Allocates nothing.
+void masked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
+                          const torch::Tensor& v, const torch::Tensor& key_valid,
+                          const torch::Tensor& out, const torch::Tensor& lse) {
+  const auto [batch, n_heads, seq, dim] = check_heads(q, {&q, &k, &v, &out});
+  check_mask(key_valid, q, batch, seq);
+  const bool with_lse = lse.numel() > 0;
+  if (with_lse) check_rows(lse, q, "lse");
   if (q.numel() == 0) return;
 
   const c10::cuda::CUDAGuard guard(q.device());
@@ -44,14 +83,111 @@ void masked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(dim)) * 1.4426950408889634);
   const bool launched = masked_attention_fwd_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr<uint8_t>(), out.data_ptr(),
-      static_cast<int>(batch), static_cast<int>(n_heads), static_cast<int>(seq),
-      static_cast<int>(dim), q.scalar_type() == torch::kBFloat16, qk_scale_log2,
+      with_lse ? lse.data_ptr<float>() : nullptr, static_cast<int>(batch),
+      static_cast<int>(n_heads), static_cast<int>(seq), static_cast<int>(dim),
+      q.scalar_type() == torch::kBFloat16, qk_scale_log2,
       c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(launched, "no kernel instance for head dim ", dim);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// dk, dv of the masked attention from the forward's lse and
+// delta = rowsum(dout * out) in fp32.  Writes dk, dv; allocates nothing.
+void masked_attention_bwd_dkv(const torch::Tensor& q, const torch::Tensor& k,
+                              const torch::Tensor& v, const torch::Tensor& dout,
+                              const torch::Tensor& lse, const torch::Tensor& delta,
+                              const torch::Tensor& key_valid, const torch::Tensor& dk,
+                              const torch::Tensor& dv) {
+  const auto [batch, n_heads, seq, dim] = check_heads(q, {&q, &k, &v, &dout, &dk, &dv});
+  check_mask(key_valid, q, batch, seq);
+  check_rows(lse, q, "lse");
+  check_rows(delta, q, "delta");
+  if (q.numel() == 0) return;
+
+  const c10::cuda::CUDAGuard guard(q.device());
+  const bool launched = masked_attention_bwd_dkv_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr<float>(),
+      delta.data_ptr<float>(), key_valid.data_ptr<uint8_t>(), dk.data_ptr(), dv.data_ptr(),
+      static_cast<int>(batch), static_cast<int>(n_heads), static_cast<int>(seq),
+      static_cast<int>(dim), q.scalar_type() == torch::kBFloat16,
+      c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(launched, "no kernel instance for head dim ", dim);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// dq of the masked attention; same inputs as masked_attention_bwd_dkv.
+void masked_attention_bwd_dq(const torch::Tensor& q, const torch::Tensor& k,
+                             const torch::Tensor& v, const torch::Tensor& dout,
+                             const torch::Tensor& lse, const torch::Tensor& delta,
+                             const torch::Tensor& key_valid, const torch::Tensor& dq) {
+  const auto [batch, n_heads, seq, dim] = check_heads(q, {&q, &k, &v, &dout, &dq});
+  check_mask(key_valid, q, batch, seq);
+  check_rows(lse, q, "lse");
+  check_rows(delta, q, "delta");
+  if (q.numel() == 0) return;
+
+  const c10::cuda::CUDAGuard guard(q.device());
+  const bool launched = masked_attention_bwd_dq_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr<float>(),
+      delta.data_ptr<float>(), key_valid.data_ptr<uint8_t>(), dq.data_ptr(),
+      static_cast<int>(batch), static_cast<int>(n_heads), static_cast<int>(seq),
+      static_cast<int>(dim), q.scalar_type() == torch::kBFloat16,
+      c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(launched, "no kernel instance for head dim ", dim);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+int64_t mas_scratch_words_binding(int64_t batch, int64_t tx, int64_t ty) {
+  return mas_scratch_words(static_cast<int>(batch), static_cast<int>(tx), static_cast<int>(ty));
+}
+
+// value: contiguous (B, Tx, Ty) float32; x_lengths, y_lengths: (B,) int32;
+// idx: (B, Ty) int32, written; scratch: int32 of mas_scratch_words(B, Tx,
+// Ty) elements (empty when the decisions fit in shared memory).
+void mas_indices(const torch::Tensor& value, const torch::Tensor& x_lengths,
+                 const torch::Tensor& y_lengths, const torch::Tensor& idx,
+                 const torch::Tensor& scratch) {
+  TORCH_CHECK(value.is_cuda() && value.is_contiguous() && value.scalar_type() == torch::kFloat32 &&
+                  value.dim() == 3,
+              "value must be a contiguous (B, Tx, Ty) float32 CUDA tensor");
+  const int64_t batch = value.size(0), tx = value.size(1), ty = value.size(2);
+  for (const torch::Tensor* t : {&x_lengths, &y_lengths}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == value.device() && t->is_contiguous() &&
+                    t->scalar_type() == torch::kInt32 && t->dim() == 1 && t->size(0) == batch,
+                "lengths must be contiguous (B,) int32 tensors on value's device");
+  }
+  TORCH_CHECK(idx.is_cuda() && idx.device() == value.device() && idx.is_contiguous() &&
+                  idx.scalar_type() == torch::kInt32 && idx.dim() == 2 && idx.size(0) == batch &&
+                  idx.size(1) == ty,
+              "idx must be a contiguous (B, Ty) int32 tensor on value's device");
+  TORCH_CHECK(batch <= (1 << 30) && tx <= (1 << 30) && ty <= (1 << 30), "shape too large");
+  const int64_t words = mas_scratch_words(static_cast<int>(batch), static_cast<int>(tx),
+                                          static_cast<int>(ty));
+  TORCH_CHECK(scratch.is_cuda() && scratch.device() == value.device() &&
+                  scratch.scalar_type() == torch::kInt32 && scratch.numel() >= words,
+              "scratch must be an int32 CUDA tensor of at least ", words, " elements");
+  if (batch == 0 || ty == 0) return;
+  TORCH_CHECK(tx >= 1, "value must have at least one token row");
+
+  const c10::cuda::CUDAGuard guard(value.device());
+  const cudaError_t err = mas_launch(
+      value.data_ptr<float>(), x_lengths.data_ptr<int>(), y_lengths.data_ptr<int>(),
+      idx.data_ptr<int>(), words > 0 ? reinterpret_cast<uint32_t*>(scratch.data_ptr<int>()) : nullptr,
+      static_cast<int>(batch), static_cast<int>(tx), static_cast<int>(ty),
+      c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == cudaSuccess, "mas launch refused: ", cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("masked_attention_fwd", &masked_attention_fwd,
-        "masked self-attention forward (sm_90a), writes out in place");
+        "masked self-attention forward (sm_90a), writes out (and lse) in place");
+  m.def("masked_attention_bwd_dkv", &masked_attention_bwd_dkv,
+        "masked self-attention backward, dk and dv (sm_90a), in place");
+  m.def("masked_attention_bwd_dq", &masked_attention_bwd_dq,
+        "masked self-attention backward, dq (sm_90a), in place");
+  m.def("mas_scratch_words", &mas_scratch_words_binding,
+        "int32 words of global scratch mas_indices needs");
+  m.def("mas_indices", &mas_indices,
+        "monotonic alignment search, forward DP + backtrack (sm_90a), writes idx in place");
 }

@@ -38,6 +38,13 @@
 
 namespace {
 
+// log2 of a row's softmax denominator, sum_k exp2(s_k) = exp2(m) * l: the
+// backward recomputes p = exp2(s - lse).  A row with no valid key (l = 0)
+// gets +inf, so every p of its backward is 0.
+__device__ __forceinline__ float lse_log2(float m, float l) {
+  return l > 0.f ? m + log2f(l) : INFINITY;
+}
+
 // ---------------------------------------------------------------------------
 // fp32: scalar FMAs
 // ---------------------------------------------------------------------------
@@ -51,8 +58,8 @@ __global__ void __launch_bounds__(kThreads)
 masked_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v,
                                 const uint8_t* __restrict__ key_valid,
-                                float* __restrict__ out, int n_heads, int seq, int dim,
-                                float qk_scale_log2) {
+                                float* __restrict__ out, float* __restrict__ lse,
+                                int n_heads, int seq, int dim, float qk_scale_log2) {
   // keys per shared-memory tile: two fp32 tiles stay under 48 KB
   constexpr int kKeys = DP <= 64 ? 64 : 32;
   constexpr int kPer = kKeys / kSplit;  // keys per thread per tile
@@ -168,6 +175,8 @@ masked_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __rest
 #pragma unroll
     for (int d = 0; d < DP; ++d)
       if (d % kSplit == s && d < dim) orow[d] = acc[d] * inv;
+    if (lse != nullptr && s == 0)
+      lse[head / dim + qi] = lse_log2(m_row, l_row);
   }
 }
 
@@ -218,8 +227,9 @@ __global__ void __launch_bounds__(32 * kWarps)
 masked_attention_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                                  const uint16_t* __restrict__ v,
                                  const uint8_t* __restrict__ key_valid,
-                                 uint16_t* __restrict__ out, int n_heads, int seq, int dim,
-                                 float qk_scale_log2, bool vec16) {
+                                 uint16_t* __restrict__ out, float* __restrict__ lse,
+                                 int n_heads, int seq, int dim, float qk_scale_log2,
+                                 bool vec16) {
   constexpr int kSteps = DP / 16;       // k-steps of Q·Kᵀ over the head dim
   constexpr int kKeyTiles = kBlockK / 8;
   constexpr int kDimTiles = DP / 8;
@@ -366,10 +376,17 @@ masked_attention_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t*
   }
 
   // a row with no valid key at all divides 0 by 0, as the plain version does
-  const float inv0 = 1.f / quad_sum(l0);
-  const float inv1 = 1.f / quad_sum(l1);
+  const float sum0 = quad_sum(l0);
+  const float sum1 = quad_sum(l1);
+  const float inv0 = 1.f / sum0;
+  const float inv1 = 1.f / sum1;
   const int r0 = row0 + g;
   const int r1 = row0 + g + 8;
+  if (lse != nullptr && t == 0) {
+    float* lh = lse + head / dim;
+    if (r0 < seq) lh[r0] = lse_log2(m0, sum0);
+    if (r1 < seq) lh[r1] = lse_log2(m1, sum1);
+  }
 #pragma unroll
   for (int j = 0; j < kDimTiles; ++j) {
     const int c = j * 8 + 2 * t;
@@ -392,37 +409,38 @@ masked_attention_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t*
 
 template <int DP>
 void launch_f32(const void* q, const void* k, const void* v, const uint8_t* key_valid, void* out,
-                int batch, int n_heads, int seq, int dim, float qk_scale_log2,
+                float* lse, int batch, int n_heads, int seq, int dim, float qk_scale_log2,
                 cudaStream_t stream) {
   const dim3 grid((seq + kRows - 1) / kRows, n_heads, batch);
   masked_attention_fwd_f32_kernel<DP><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      key_valid, static_cast<float*>(out), n_heads, seq, dim, qk_scale_log2);
+      key_valid, static_cast<float*>(out), lse, n_heads, seq, dim, qk_scale_log2);
 }
 
 template <int DP>
 void launch_bf16(const void* q, const void* k, const void* v, const uint8_t* key_valid,
-                 void* out, int batch, int n_heads, int seq, int dim, float qk_scale_log2,
-                 cudaStream_t stream) {
+                 void* out, float* lse, int batch, int n_heads, int seq, int dim,
+                 float qk_scale_log2, cudaStream_t stream) {
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool vec16 = dim % 8 == 0 && aligned(k) && aligned(v);
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, n_heads, batch);
   masked_attention_fwd_bf16_kernel<DP><<<grid, 32 * kWarps, 0, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), key_valid, static_cast<uint16_t*>(out), n_heads, seq, dim,
-      qk_scale_log2, vec16);
+      static_cast<const uint16_t*>(v), key_valid, static_cast<uint16_t*>(out), lse, n_heads, seq,
+      dim, qk_scale_log2, vec16);
 }
 
 }  // namespace
 
 // Launches on `stream` without synchronising.  Returns false, launching
 // nothing, for a head dim outside [1, 128]; the caller checks
-// cudaGetLastError.
+// cudaGetLastError.  `lse` (B, H, T) fp32, or null: the log-sum-exp of each
+// row's scaled logits in log2 units, which the backward kernels read.
 bool masked_attention_fwd_launch(const void* q, const void* k, const void* v,
-                                 const uint8_t* key_valid, void* out, int batch,
+                                 const uint8_t* key_valid, void* out, float* lse, int batch,
                                  int n_heads, int seq, int dim, bool bf16,
                                  float qk_scale_log2, cudaStream_t stream) {
-#define MATCHA_ARGS q, k, v, key_valid, out, batch, n_heads, seq, dim, qk_scale_log2, stream
+#define MATCHA_ARGS q, k, v, key_valid, out, lse, batch, n_heads, seq, dim, qk_scale_log2, stream
   if (dim < 1 || dim > 128) return false;
   if (bf16) {
     if (dim <= 16) launch_bf16<16>(MATCHA_ARGS);

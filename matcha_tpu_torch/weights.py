@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's parameter trees → the port's state_dicts.
+"""Weight bridge between the JAX package's parameter trees and the port's state_dicts.
 
 The port's modules carry the reference Matcha-TTS / Vocos torch names, so a
 state_dict here is the reference torch layout, and the JAX package's
@@ -16,7 +16,12 @@ layout rules (and importing neither):
   flax Embed / norm scale, bias          → as is
 
 Each mapping is one row of a table built from the config; a flax leaf that
-no row consumes, or a row whose leaf is missing, raises.
+no row consumes, or a row whose leaf is missing, raises.  ``params_to_jax``
+runs the same table backwards (the trainer writes its checkpoints in the
+flax layout, and the tests hold gradients against ``jax.grad``), and
+``decay_mask`` reads weight decay off the layout kind: the rows that are
+flax ``kernel``s decay, the ``copy`` rows (embeddings, norm scales and
+biases, biases, SnakeBeta alpha/beta) do not.
 """
 
 from __future__ import annotations
@@ -34,6 +39,15 @@ _TO_TORCH = {
     "conv": lambda w: np.transpose(w, (2, 1, 0)),
     "dense": lambda w: w.T,
     "dense_as_conv1x1": lambda w: w.T[:, :, None],
+    "convT": lambda w: np.transpose(w, (2, 1, 0)),
+}
+
+
+_TO_FLAX = {
+    "copy": lambda w: w,
+    "conv": lambda w: np.transpose(w, (2, 1, 0)),
+    "dense": lambda w: w.T,
+    "dense_as_conv1x1": lambda w: w[:, :, 0].T,
     "convT": lambda w: np.transpose(w, (2, 1, 0)),
 }
 
@@ -191,3 +205,33 @@ def params_from_jax(flax_params: Mapping, cfg: MatchaConfig) -> dict[str, torch.
 def vocos_params_from_jax(flax_params: Mapping, cfg: VocosConfig) -> dict[str, torch.Tensor]:
     """Vocos flax param tree (numpy leaves) → port state_dict (fp32)."""
     return _bridge(flax_params, vocos_param_table(cfg))
+
+
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
+    """{"a/b/c": array} → nested dict."""
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor], cfg: MatchaConfig) -> dict:
+    """Port state_dict (any device) → MatchaTTS flax param tree (fp32 numpy)."""
+    rows = matcha_param_table(cfg)
+    names = {r[0] for r in rows}
+    if set(state) != names:
+        missing, extra = sorted(names - set(state)), sorted(set(state) - names)
+        raise KeyError(f"state_dict does not match the table: missing {missing[:10]}, extra {extra[:10]}")
+    return unflatten_tree({
+        flax_path: np.ascontiguousarray(_TO_FLAX[kind](state[name].detach().float().cpu().numpy()))
+        for name, flax_path, kind in rows
+    })
+
+
+def decay_mask(cfg: MatchaConfig) -> dict[str, bool]:
+    """torch name → True where AdamW's weight decay applies (flax kernels)."""
+    return {name: kind != "copy" for name, _, kind in matcha_param_table(cfg)}

@@ -5,8 +5,8 @@ The plain version runs on the CPU and is held against
 float64 numpy oracle (mirroring tests/test_attention.py:64,85).  fp32 on
 both sides: tolerance 1e-5, the size of fp32 summation-order differences.
 
-The hand-written CUDA kernel runs only on the card: its tests carry the
-``cuda`` marker and skip where no CUDA device exists.
+The hand-written CUDA kernel runs only on the card: its test is in
+tests/test_torch_cuda_kernels.py.
 """
 
 import math
@@ -75,23 +75,3 @@ def test_bf16_plain_output_dtype():
     np.testing.assert_allclose(
         out.float().numpy(), ta.masked_self_attention_plain(q, k, v, valid).numpy(), atol=5e-2
     )
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 6, 256, 48), (16, 5, 512, 64), (2, 6, 4000, 48), (3, 5, 333, 64), (2, 2, 37, 8)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(shape, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("the CUDA kernel runs only on a card")
-    b, h, t, d = shape
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype)) for _ in range(3))
-    lengths = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
-    lengths[0] = 1
-    valid = (torch.arange(t, device="cuda")[None] < lengths[:, None]).float()
-    out = ta.masked_attention_fwd(q, k, v, valid)
-    torch.cuda.synchronize()
-    ref = ta.masked_self_attention_plain(q.float(), k.float(), v.float(), valid)
-    # fp32: summation order and exp2 vs exp; bf16: rounding of the output
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    assert (out.float() - ref).abs().max().item() <= tol

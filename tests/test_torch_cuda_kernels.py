@@ -1,0 +1,80 @@
+"""The port's hand-written CUDA kernels against their plain versions, on a card.
+
+Every test here carries the ``cuda`` marker and skips where no CUDA device
+exists.  This file imports torch and the port only, so it runs on a machine
+without JAX; ``tests/conftest.py`` imports JAX, so run it without the
+conftest there:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q -m cuda
+
+Tolerances: attention forward max abs error 1e-4 (fp32: summation order,
+exp2 against exp) and 2e-2 (bf16 output rounding); backward max |err| /
+max |ref| of dq, dk, dv, the same two; MAS indices equal (fp32 adds and
+maxes in one order).
+"""
+
+import pytest
+import torch
+
+from matcha_tpu_torch.ops import attention as ta
+from matcha_tpu_torch.ops import mas
+
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _valid(b, t, gen):
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    lengths[0] = 1
+    return (torch.arange(t, device="cuda")[None] < lengths[:, None]).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 6, 256, 48), (16, 5, 512, 64), (2, 6, 4000, 48), (3, 5, 333, 64), (2, 2, 37, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_card(gen, shape, dtype):
+    b, h, t, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype)) for _ in range(3))
+    valid = _valid(b, t, gen)
+    out = ta.masked_attention_fwd(q, k, v, valid)
+    torch.cuda.synchronize()
+    ref = ta.masked_self_attention_plain(q.float(), k.float(), v.float(), valid)
+    assert (out.float() - ref).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(62, 5, 512, 64), (29, 5, 544, 64), (3, 5, 333, 64), (2, 6, 4000, 48)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_backward_matches_plain_on_card(gen, shape, dtype):
+    b, h, t, d = shape
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt).requires_grad_() for _ in range(3))
+    dout = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    valid = _valid(b, t, gen)
+    before = ta.masked_attention_bwd_dq_count.launches
+    grads = torch.autograd.grad(ta.masked_self_attention(q, k, v, valid), (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert ta.masked_attention_bwd_dq_count.launches == before + 1
+    ref_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref = torch.autograd.grad(ta.masked_self_attention_plain(*ref_in, valid), ref_in, dout.float())
+    for g, r in zip(grads, ref):
+        assert ((g.float() - r).abs().max() / r.abs().max()).item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(62, 224, 1024), (29, 448, 2176), (3, 37, 333), (2, 1000, 4096)])
+def test_mas_kernel_equals_plain_on_card(gen, shape):
+    b, t_x, t_y = shape
+    v = torch.randn(shape, generator=gen, device="cuda")
+    xl = torch.randint(1, t_x + 1, (b,), generator=gen, device="cuda")
+    yl = torch.randint(1, t_y + 1, (b,), generator=gen, device="cuda")
+    xl[0] = 1
+    got = mas.maximum_path_indices_kernel(v, xl, yl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mas.maximum_path_indices_plain(v, xl, yl))

@@ -25,6 +25,7 @@ from matcha_tpu_torch.weights import (
     flatten_tree,
     matcha_param_table,
     params_from_jax,
+    params_to_jax,
     vocos_params_from_jax,
 )
 from tools.convert_matcha_ckpt import convert_state_dict
@@ -75,6 +76,15 @@ def test_tiny_round_trips_through_the_reference_converter(tiny_params):
         strict=True,
     )
     _assert_trees_equal(back, tiny_params)
+
+
+def test_params_to_jax_inverts_the_bridge(tiny_params):
+    cfg = tiny_config()
+    _assert_trees_equal(params_to_jax(params_from_jax(tiny_params, cfg), cfg), tiny_params)
+    state = params_from_jax(tiny_params, cfg)
+    state.pop("encoder.emb.weight")
+    with pytest.raises(KeyError):
+        params_to_jax(state, cfg)
 
 
 def test_missing_or_extra_leaf_raises(tiny_params):
