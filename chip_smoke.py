@@ -10,10 +10,13 @@ JSON line:
   3. kernels  each kernel against its plain PyTorch version on the card
               (masked attention forward: max abs error in fp32; its
               backward: max |err| / max |ref| of dq, dk, dv against
-              autograd through the plain version; MAS: indices equal to the
-              plain version and to the numpy oracle), then timed with CUDA
-              events beside the plain version, the bound and the library
-              call
+              autograd through the plain version, and each backward kernel
+              alone against the plain version of its own contract, from the
+              log-sum-exp the forward kernel wrote; MAS: indices equal to
+              the plain version and to the numpy oracle), then timed with
+              CUDA events beside the plain version, the bound and the
+              library call; the backward kernels' registers, shared memory
+              and spills
   4. model    synthesis at full width (MatchaConfig + VocosConfig, bf16,
               random weights from a seeded torch.Generator) through the
               synthesizer's entry points: fused B=1 at the production
@@ -60,6 +63,7 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-3  # log2 units: fp32 sums in another order, exp2 against exp
 
 
 def emit(obj) -> None:
@@ -522,17 +526,23 @@ def phase_training_kernels() -> dict:
         keep = valid[:, None, None, :] > 0
         lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
         library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True))
-        dkv_bound = attention_bwd_bound_ms(b, h, t, d, torch.bfloat16, t, products=4, tensors=6)
-        dq_bound = attention_bwd_bound_ms(b, h, t, d, torch.bfloat16, t, products=3, tensors=5)
+        product_flops = 2 * b * h * t * t * d
+        entry = {"plain_ms": plain_ms, "library_ms": library_ms}
+        for name, ms, products, tensors in (("masked_attention_bwd_dkv", dkv_ms, 4, 6),
+                                            ("masked_attention_bwd_dq", dq_ms, 3, 5)):
+            bound = attention_bwd_bound_ms(b, h, t, d, torch.bfloat16, t, products, tensors)
+            entry[name] = dict(ms=ms, bound_ms=bound[0], bound_by=bound[1],
+                               tflops=products * product_flops / (ms * 1e-3) / 1e12,
+                               earlier_ms=EARLIER_MS[shape][name])
         pair_bound = attention_bwd_bound_ms(b, h, t, d, torch.bfloat16, t, products=5, tensors=8)
-        timed[shape] = {
-            "masked_attention_bwd_dkv": dict(ms=dkv_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1]),
-            "masked_attention_bwd_dq": dict(ms=dq_ms, bound_ms=dq_bound[0], bound_by=dq_bound[1]),
-            "pair": dict(ms=dkv_ms + dq_ms, bound_ms=pair_bound[0], bound_by=pair_bound[1]),
-            "plain_ms": plain_ms, "library_ms": library_ms,
-        }
+        entry["pair"] = dict(ms=dkv_ms + dq_ms, bound_ms=pair_bound[0], bound_by=pair_bound[1],
+                             earlier_ms=sum(EARLIER_MS[shape].values()),
+                             vs_library=(dkv_ms + dq_ms) / library_ms)
+        timed[shape] = entry
         emit({"phase": "kernel_time", "kernel": "masked_attention_bwd", "shape": list(shape),
-              "dtype": "bfloat16", "plain_and_library": "whole backward (dq, dk, dv)", **timed[shape]})
+              "dtype": "bfloat16", "plain_and_library": "whole backward (dq, dk, dv)",
+              "tflops": "products each kernel computes (dkv 4, dq 3) over its time",
+              "earlier_ms": "the mma.sync kernels this design replaced (PERF.md)", **timed[shape]})
         del plain_out, lib_out
 
     for shape in MAS_SHAPES[:2]:
@@ -548,6 +558,70 @@ def phase_training_kernels() -> dict:
                             bound_by=bound_by, sequential_frames=ty)
         emit({"phase": "kernel_time", "kernel": "mas", "shape": list(shape), **timed[shape]})
     return {"max_rel_err": worst, "timed": timed}
+
+
+BWD_CHECK_SHAPES = [(62, 5, 512, 64), (29, 5, 1088, 64), (29, 5, 544, 64), (3, 5, 333, 64),
+                    (2, 6, 4000, 48), (2, 3, 96, 36), (2, 3, 96, 40), (2, 4, 200, 128)]
+# device times of the mma.sync backward kernels the wgmma ones replaced, on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table)
+EARLIER_MS = {(62, 5, 512, 64): {"masked_attention_bwd_dkv": 0.3526, "masked_attention_bwd_dq": 0.1857},
+              (29, 5, 1088, 64): {"masked_attention_bwd_dkv": 0.6636, "masked_attention_bwd_dq": 0.3382}}
+
+
+def rel_err(got, ref) -> float:
+    return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_bwd_kernels() -> dict:
+    """Each backward kernel alone against ``masked_attention_bwd_plain``, fed
+    the log-sum-exp the forward kernel wrote (itself held against
+    ``masked_attention_lse_plain``); ragged key lengths including 1.  Keys
+    past a row's length must get dk = dv = 0 exactly."""
+    from matcha_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape in BWD_CHECK_SHAPES:
+        b, h, t, d = shape
+        lengths = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+        lengths[0], lengths[-1] = 1, t
+        valid = (torch.arange(t, device="cuda")[None] < lengths[:, None]).float()
+        valid_u8 = valid.to(torch.uint8)
+        padded = (valid_u8 == 0)[:, None, :, None].expand(b, h, t, d)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+            out, lse = att._launch_fwd(q, k, v, valid_u8, with_lse=True)
+            delta = (dout.float() * out.float()).sum(-1)
+            dk, dv = att.masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8)
+            dq = att.masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8)
+            torch.cuda.synchronize()
+            lse_err = (lse - att.masked_attention_lse_plain(q, k, valid)).abs().max().item()
+            ref = att.masked_attention_bwd_plain(q.float(), k.float(), v.float(), dout.float(),
+                                                 lse, delta, valid)
+            errs = {f"d{n}": rel_err(g, r) for n, g, r in zip("qkv", (dq, dk, dv), ref)}
+            pad_zero = bool((dk[padded] == 0).all() and (dv[padded] == 0).all())
+            ok = (lse_err <= LSE_TOL and pad_zero
+                  and all(math.isfinite(e) and e <= TOL[dtype] for e in errs.values()))
+            emit({"phase": "kernel_check", "kernel": "masked_attention_bwd_alone", "shape": list(shape),
+                  "dtype": str(dtype).split(".")[-1], "key_lengths": lengths.tolist()[:4],
+                  "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL, "rel_err": errs, "tol": TOL[dtype],
+                  "padded_keys_zero": pad_zero, "ok": ok})
+            check(ok, f"a backward kernel disagrees with masked_attention_bwd_plain at {shape} {dtype}: "
+                      f"lse {lse_err}, {errs}, padded keys zero: {pad_zero}")
+            worst[dtype] = max(worst[dtype], *errs.values())
+            del q, k, v, dout, out, lse, delta, dk, dv, dq, ref
+    return worst
+
+
+def phase_bwd_attributes() -> dict:
+    """Registers, shared memory and local (spill) bytes of the bf16 backward
+    kernels, one instance per head-dim class (D <= 64, 64 < D <= 128)."""
+    from matcha_tpu_torch.ops.extension import kernels
+
+    out = {f"{name}_d{d}": kernels().masked_attention_bwd_attributes(name, d)
+           for name in ("dkv", "dq") for d in (64, 128)}
+    emit({"phase": "kernel_attributes", **out})
+    return out
 
 
 def write_corpus(root, n_feats: int, seed: int = 0):
@@ -799,6 +873,8 @@ def main() -> int:
     phase_build()
     k1 = phase_kernels()
     kt = phase_training_kernels()
+    bwd_alone = phase_bwd_kernels()
+    phase_bwd_attributes()
     counters = train_counters()
 
     # main path 1: synthesis (model + server), counts read just after
@@ -829,7 +905,7 @@ def main() -> int:
     prod = k1["timed"][(16, 5, 512, 64)]
     bwd = kt["timed"][(62, 5, 512, 64)]
     mas_t = kt["timed"][(62, 224, 1024)]
-    bwd_err = max(kt["max_rel_err"].values())
+    bwd_err = max(*kt["max_rel_err"].values(), *bwd_alone.values())
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [
         kernel_entry("masked_attention_fwd", "masked_attention_fwd.cu",

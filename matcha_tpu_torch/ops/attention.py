@@ -28,7 +28,12 @@ backward launches the two backward kernels of ``csrc/masked_attention_bwd.cu``
 the Pallas TPU backward (``_flash_attention_bwd_dkv`` and
 ``_flash_attention_bwd_dq`` in the same file).  Without grad the forward
 writes no log-sum-exp.  On a CPU tensor autograd runs through the plain
-version.
+version.  Each backward kernel alone has a plain version of its own
+contract, ``masked_attention_bwd_plain`` (from the forward's
+``masked_attention_lse_plain``), which the tests and ``chip_smoke.py``
+hold it against.  The bf16 kernels read their operands by TMA, which needs
+16-byte row strides: a head dim that is not a multiple of 8 is zero-padded
+(``pad_head_dim``) and the gradients are sliced back.
 
 Dispatch.  A tensor on the CPU takes the plain version.  A CUDA tensor
 launches the kernel or raises; a build or launch failure is never hidden
@@ -46,6 +51,8 @@ from matcha_tpu_torch.ops.extension import LaunchCounter, kernels
 
 BACKENDS = ("auto", "flash", "einsum")
 MAX_HEAD_DIM = 128
+LOG2E = 1.4426950408889634
+TMA_HEAD_DIM_MULTIPLE = 8  # bf16 rows of a multiple of 16 bytes
 
 masked_attention_fwd_count = LaunchCounter("masked_attention_fwd")
 masked_attention_bwd_dkv_count = LaunchCounter("masked_attention_bwd_dkv")
@@ -67,6 +74,50 @@ def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None):
     if weights_dropout is not None:
         weights = weights_dropout(weights)
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
+
+
+def masked_attention_lse_plain(q, k, key_valid):
+    """The forward's fp32 log-sum-exp in log2 units, (B, H, T), as the K1
+    kernel writes it: log2 Σ_valid exp2(q·kᵀ·scale·log2e); +inf for a row
+    whose batch row has no valid key."""
+    scale_log2 = LOG2E / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale_log2
+    keep = key_valid[:, None, None, :] > 0
+    lse = torch.logsumexp(s.masked_fill(~keep, float("-inf")) * math.log(2.0), dim=-1) / math.log(2.0)
+    return torch.where(keep.any(dim=-1), lse, torch.full_like(lse, float("inf")))
+
+
+def masked_attention_bwd_plain(q, k, v, dout, lse, delta, key_valid, scale=None):
+    """dq, dk, dv by the backward kernels' own formulas, in fp32:
+    P = exp2(q·kᵀ·scale·log2e − lse) with padded keys 0, dV = Pᵀ·dO,
+    dP = dO·vᵀ, dS = P∘(dP − delta), dQ = scale·dS·k, dK = scale·dSᵀ·q.
+    ``lse``: (B, H, T) log2 units (``masked_attention_lse_plain``);
+    ``delta``: (B, H, T) rowsum(dO∘O); ``scale`` defaults to 1/√D of q's
+    head dim.  Returns (dq, dk, dv) in the inputs' dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    p = torch.exp2(s * (scale * LOG2E) - lse.float()[..., None])
+    p = p.masked_fill(~(key_valid[:, None, None, :] > 0), 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, df)
+    dp = torch.einsum("bhqd,bhkd->bhqk", df, vf)
+    ds = p * (dp - delta.float()[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def pad_head_dim(tensors, multiple: int = TMA_HEAD_DIM_MULTIPLE):
+    """The tensors zero-padded along the last (head) dim to a multiple of
+    ``multiple``; unchanged when it already is one.  Zero columns add
+    nothing to q·kᵀ or dO·vᵀ, so the gradients' first D columns are those
+    of the unpadded call at the same scale."""
+    d = tensors[0].shape[-1]
+    extra = -d % multiple
+    if extra == 0:
+        return tuple(tensors)
+    return tuple(torch.nn.functional.pad(x, (0, extra)) for x in tensors)
 
 
 def _check_cuda_inputs(q, k, v, key_valid):
@@ -94,23 +145,33 @@ def _launch_fwd(q, k, v, valid_u8, with_lse: bool):
     return out, lse
 
 
+def _bwd_operands(q, k, v, dout):
+    """The true head dim, its softmax scale, and the operands as the kernels
+    take them: bf16 zero-padded to a head dim the TMA kernels can read."""
+    d = q.shape[-1]
+    ins = pad_head_dim((q, k, v, dout)) if q.dtype == torch.bfloat16 else (q, k, v, dout)
+    return d, 1.0 / math.sqrt(d), ins
+
+
 def masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8):
     """The dk, dv kernel's wrapper: (B, H, T, D) CUDA tensors in one dtype,
     the forward's (B, H, T) fp32 ``lse`` and ``delta = rowsum(dout·out)``,
     a (B, T) uint8 key mask.  Returns (dk, dv)."""
+    d, scale, (q, k, v, dout) = _bwd_operands(q, k, v, dout)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    kernels().masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8, dk, dv)
+    kernels().masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8, dk, dv, scale)
     masked_attention_bwd_dkv_count.add()
-    return dk, dv
+    return dk[..., :d], dv[..., :d]
 
 
 def masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8):
     """The dq kernel's wrapper; same inputs as ``masked_attention_bwd_dkv``."""
+    d, scale, (q, k, v, dout) = _bwd_operands(q, k, v, dout)
     dq = torch.empty_like(q)
-    kernels().masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8, dq)
+    kernels().masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8, dq, scale)
     masked_attention_bwd_dq_count.add()
-    return dq
+    return dq[..., :d]
 
 
 class MaskedAttention(torch.autograd.Function):

@@ -10,20 +10,25 @@
 #include <array>
 #include <cmath>
 #include <initializer_list>
+#include <map>
+#include <string>
 
 bool masked_attention_fwd_launch(const void* q, const void* k, const void* v,
                                  const uint8_t* key_valid, void* out, float* lse, int batch,
                                  int n_heads, int seq, int dim, bool bf16,
                                  float qk_scale_log2, cudaStream_t stream);
-bool masked_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
-                                     const void* dout, const float* lse, const float* delta,
-                                     const uint8_t* key_valid, void* dk, void* dv, int batch,
-                                     int n_heads, int seq, int dim, bool bf16,
-                                     cudaStream_t stream);
-bool masked_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
-                                    const void* dout, const float* lse, const float* delta,
-                                    const uint8_t* key_valid, void* dq, int batch, int n_heads,
-                                    int seq, int dim, bool bf16, cudaStream_t stream);
+const char* masked_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                                            const void* dout, const float* lse,
+                                            const float* delta, const uint8_t* key_valid,
+                                            void* dk, void* dv, int batch, int n_heads, int seq,
+                                            int dim, float scale, bool bf16,
+                                            cudaStream_t stream);
+const char* masked_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
+                                           const void* dout, const float* lse, const float* delta,
+                                           const uint8_t* key_valid, void* dq, int batch,
+                                           int n_heads, int seq, int dim, float scale, bool bf16,
+                                           cudaStream_t stream);
+cudaError_t masked_attention_bwd_attributes(int kernel, int dim, int* out);
 long long mas_scratch_words(int batch, int tx, int ty);
 cudaError_t mas_launch(const float* value, const int* x_len, const int* y_len, int* idx,
                        uint32_t* scratch, int batch, int tx, int ty, cudaStream_t stream);
@@ -92,12 +97,14 @@ void masked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
 }
 
 // dk, dv of the masked attention from the forward's lse and
-// delta = rowsum(dout * out) in fp32.  Writes dk, dv; allocates nothing.
+// delta = rowsum(dout * out) in fp32, at softmax scale `scale` (that of the
+// true head dim when the wrapper padded it).  Writes dk, dv; allocates
+// nothing.
 void masked_attention_bwd_dkv(const torch::Tensor& q, const torch::Tensor& k,
                               const torch::Tensor& v, const torch::Tensor& dout,
                               const torch::Tensor& lse, const torch::Tensor& delta,
                               const torch::Tensor& key_valid, const torch::Tensor& dk,
-                              const torch::Tensor& dv) {
+                              const torch::Tensor& dv, double scale) {
   const auto [batch, n_heads, seq, dim] = check_heads(q, {&q, &k, &v, &dout, &dk, &dv});
   check_mask(key_valid, q, batch, seq);
   check_rows(lse, q, "lse");
@@ -105,13 +112,13 @@ void masked_attention_bwd_dkv(const torch::Tensor& q, const torch::Tensor& k,
   if (q.numel() == 0) return;
 
   const c10::cuda::CUDAGuard guard(q.device());
-  const bool launched = masked_attention_bwd_dkv_launch(
+  const char* err = masked_attention_bwd_dkv_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr<float>(),
       delta.data_ptr<float>(), key_valid.data_ptr<uint8_t>(), dk.data_ptr(), dv.data_ptr(),
       static_cast<int>(batch), static_cast<int>(n_heads), static_cast<int>(seq),
-      static_cast<int>(dim), q.scalar_type() == torch::kBFloat16,
+      static_cast<int>(dim), static_cast<float>(scale), q.scalar_type() == torch::kBFloat16,
       c10::cuda::getCurrentCUDAStream().stream());
-  TORCH_CHECK(launched, "no kernel instance for head dim ", dim);
+  TORCH_CHECK(err == nullptr, "masked_attention_bwd_dkv: ", err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -119,7 +126,8 @@ void masked_attention_bwd_dkv(const torch::Tensor& q, const torch::Tensor& k,
 void masked_attention_bwd_dq(const torch::Tensor& q, const torch::Tensor& k,
                              const torch::Tensor& v, const torch::Tensor& dout,
                              const torch::Tensor& lse, const torch::Tensor& delta,
-                             const torch::Tensor& key_valid, const torch::Tensor& dq) {
+                             const torch::Tensor& key_valid, const torch::Tensor& dq,
+                             double scale) {
   const auto [batch, n_heads, seq, dim] = check_heads(q, {&q, &k, &v, &dout, &dq});
   check_mask(key_valid, q, batch, seq);
   check_rows(lse, q, "lse");
@@ -127,14 +135,28 @@ void masked_attention_bwd_dq(const torch::Tensor& q, const torch::Tensor& k,
   if (q.numel() == 0) return;
 
   const c10::cuda::CUDAGuard guard(q.device());
-  const bool launched = masked_attention_bwd_dq_launch(
+  const char* err = masked_attention_bwd_dq_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr<float>(),
       delta.data_ptr<float>(), key_valid.data_ptr<uint8_t>(), dq.data_ptr(),
       static_cast<int>(batch), static_cast<int>(n_heads), static_cast<int>(seq),
-      static_cast<int>(dim), q.scalar_type() == torch::kBFloat16,
+      static_cast<int>(dim), static_cast<float>(scale), q.scalar_type() == torch::kBFloat16,
       c10::cuda::getCurrentCUDAStream().stream());
-  TORCH_CHECK(launched, "no kernel instance for head dim ", dim);
+  TORCH_CHECK(err == nullptr, "masked_attention_bwd_dq: ", err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// cudaFuncGetAttributes of the bf16 backward kernel ("dq" or "dkv") that
+// serves head dim `dim`, on the current device.
+std::map<std::string, int64_t> masked_attention_bwd_attributes_binding(const std::string& kernel,
+                                                                       int64_t dim) {
+  TORCH_CHECK(kernel == "dq" || kernel == "dkv", "kernel must be \"dq\" or \"dkv\"");
+  TORCH_CHECK(dim >= 1 && dim <= 128, "head dim must be in [1, 128]");
+  int out[5];
+  const cudaError_t err =
+      masked_attention_bwd_attributes(kernel == "dq" ? 0 : 1, static_cast<int>(dim), out);
+  TORCH_CHECK(err == cudaSuccess, "cudaFuncGetAttributes: ", cudaGetErrorString(err));
+  return {{"registers", out[0]}, {"static_smem_bytes", out[1]}, {"dynamic_smem_bytes", out[2]},
+          {"local_bytes", out[3]}, {"threads", out[4]}};
 }
 
 int64_t mas_scratch_words_binding(int64_t batch, int64_t tx, int64_t ty) {
@@ -186,6 +208,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "masked self-attention backward, dk and dv (sm_90a), in place");
   m.def("masked_attention_bwd_dq", &masked_attention_bwd_dq,
         "masked self-attention backward, dq (sm_90a), in place");
+  m.def("masked_attention_bwd_attributes", &masked_attention_bwd_attributes_binding,
+        "registers, shared memory and local bytes of a bf16 backward kernel");
   m.def("mas_scratch_words", &mas_scratch_words_binding,
         "int32 words of global scratch mas_indices needs");
   m.def("mas_indices", &mas_indices,

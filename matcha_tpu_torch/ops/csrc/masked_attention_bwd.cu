@@ -2,40 +2,80 @@
 // out = softmax(q·kᵀ/√D over the valid keys)·v.
 //
 // Replaces the Pallas TPU flash-attention backward that the JAX package
-// differentiates through (jax/experimental/pallas/ops/tpu/flash_attention.py:
-// _flash_attention_bwd_dkv at :1121 and _flash_attention_bwd_dq at :1456).
-// Same split: one kernel per key tile loops over the query tiles for dk, dv;
-// one kernel per query tile loops over the key tiles for dq; no atomics.
-// P is recomputed from q, k and the forward's log-sum-exp (log2 units, see
-// masked_attention_fwd.cu); D_i = rowsum(dO∘O) arrives precomputed in fp32,
-// as the TPU wrapper computes it outside its kernels:
+// differentiates through (jax/experimental/pallas/ops/tpu/flash_attention.py):
+// _flash_attention_dkv_kernel :796, called from _flash_attention_bwd_dkv
+// :941 → pallas_call :1121, and _flash_attention_dq_kernel :1146, called
+// from _flash_attention_bwd_dq :1287 → pallas_call :1456.  Same split: one
+// kernel per key block loops over the query tiles for dk, dv; one kernel per
+// query block loops over the key tiles for dq; no atomics, so dq is
+// deterministic.  P is recomputed from q, k and the forward's log-sum-exp
+// (log2 units, see masked_attention_fwd.cu); D_i = rowsum(dO∘O) arrives
+// precomputed in fp32, as the TPU wrapper computes it outside its kernels:
 //   S = q·kᵀ, P = exp2(S·scale·log2e − lse), dV = Pᵀ·dO, dP = dO·vᵀ,
 //   dS = P∘(dP − D), dQ = scale·dS·k, dK = scale·dSᵀ·q.
 // Padded keys get dk = dv = 0; every query row, padded or not, back-
 // propagates through the valid keys it attended, as in the forward.
 //
-// What bounds it on the card: at the decoder's training shapes
-// (B=29..62, H=5, T=256..1088, D=64, bf16) the work is 10·B·H·T²·D flops
-// (five products) against about 8·B·H·T·D·2 bytes, so the tensor cores and
-// not the memory set the bound.  What the design does:
+// What bounds it on the card: at the decoder's training shapes (B=29..62,
+// H=5, T=256..1088, D=64, bf16) the function is five products,
+// 10·B·H·T²·D flops, against about 8·B·H·T·D·2 bytes, so the tensor cores
+// and not the memory set the bound (52.6 µs at (62,5,512,64) on an H100).
+// The split recomputes S and dP in both kernels: 7 products are computed
+// against the 5 of the bound, so the pair cannot come closer than 5/7 of it.
 //
-//   bf16  mma.sync m16n8k16 (bf16 in, fp32 accumulate) for every product,
-//         4 warps of 16 rows per block.  dkv: a block owns 64 keys and keeps
-//         k, v as A fragments in registers, computes Sᵀ and dPᵀ per tile of
-//         32 queries and feeds Pᵀ and dSᵀ straight from the accumulator
-//         fragments into dV += Pᵀ·dO and dK += dSᵀ·q.  dq: a block owns 64
-//         queries, keeps q and dO as A fragments, and streams 64-key tiles.
-//   fp32  exact fp32 FMAs (no TF32): a block owns 16 rows, 8 threads per
-//         row each holding every 8th head dim; row dot products are reduced
-//         by warp shuffles.
+// bf16 design (the training path):
+//   dkv  one block per (128 keys, head, batch row): two consumer warpgroups
+//        of 64 keys and one producer warp (288 threads).  K and V of the
+//        block go once into shared memory by TMA; Q and dO stream as
+//        64-query tiles through a ring of kStages stages, each stage with a
+//        full and an empty mbarrier; the producer's one thread keeps the
+//        ring loaded while the warpgroups compute.  Per tile each warpgroup
+//        runs Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as wgmma m64n64k16 from shared
+//        memory (both operands K-major), forms Pᵀ and dSᵀ in the accumulator
+//        registers, and runs dV += Pᵀ·dO and dK += dSᵀ·Q with A from
+//        registers (the fp32 accumulator layout of 16 columns is the bf16
+//        A-register layout of k16) and B = the dO or Q tile read MN-major
+//        (transpose bit).  The tile's lse and delta (64 fp32 each) are read
+//        by the consumers from L1/L2, issued before the products.
+//   dq   one block per (128 queries, head, batch row), the same roles: Q and
+//        dO once in shared memory, lse and delta per row in registers, K and
+//        V stream through the ring, the tile's key mask is read beside them.
+//        S = Q·Kᵀ and dP = dO·Vᵀ from shared memory, dQ += dS·K with A = dS
+//        from registers and B = the K tile MN-major.
+//   Every tile is a (64 rows × 64 columns) bf16 TMA box with 128-byte
+//   swizzle, from a 3-D tensor map (D, T, B·H): rows past T and columns
+//   past D arrive as zeros and never from the next head.  dk, dv and dq go
+//   back through shared memory in the same swizzled layout and leave by a
+//   TMA store, which drops rows past T and columns past D.  D ≤ 64 is one
+//   64-column box, 64 < D ≤ 128 two; the wrapper pads a head dim that is not
+//   a multiple of 8 (TMA needs 16-byte row strides) and passes the true
+//   scale.  P is exp2 by ex2.approx; padded keys and rows past T get P = 0
+//   without a branch before a product (ptxas serialises wgmma behind
+//   divergent code, C7520).
+//   What this does about the four costs of the mma.sync kernels it
+//   replaces: (1) loads were synchronous and serialised with the math: the
+//   producer warp keeps up to kStages tiles in flight on mbarriers while
+//   the warpgroups compute; (2) the transposed operands were gathered from
+//   shared memory 16 bits at a time: wgmma reads them MN-major from the
+//   swizzled tile, no thread loads a B operand; (3) tiles of 32 queries and
+//   mma.sync m16n8k16: 64-row tiles and wgmma, the only path to Hopper's
+//   tensor-core rate; (4) scattered 16-bit epilogue stores: one TMA store
+//   per 64 × 64 box.
+//   What still holds it back (see PERF.md): one block of two warpgroups per
+//   SM (168 registers a thread in dkv), and each warpgroup waits for its own
+//   products twice per tile, so the tensor cores idle while it computes P.
 //
-// wgmma, TMA and pipelining are later work.  Any T works (tails masked);
-// head dims up to 128 are padded with zeros.
+// fp32 (the reference checks): exact fp32 FMAs (no TF32), a block owns 16
+// rows, 8 threads per row each holding every 8th head dim; row dot products
+// are reduced by warp shuffles.  Any T, head dims 1..128.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -216,22 +256,141 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16, fp32 accumulate
+// bf16: wgmma fed by TMA through an mbarrier ring
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kThreadsB = 32 * kWarps;
-constexpr int kOwnB = 16 * kWarps;  // owned rows per block (queries or keys)
-constexpr int kKeyTile = 64;        // dq: keys per shared tile
-constexpr int kQueryTile = 32;      // dkv: queries per shared tile
+constexpr int kStages = 2;  // ring depth; 2, 3 and 4 measured, 2 fastest (PERF.md)
+constexpr int kConsumers = 256;                // two warpgroups of 64 rows each
+constexpr int kThreadsW = kConsumers + 32;     // + one producer warp
+constexpr int kBlockRows = 128;                // rows (keys or queries) a block owns
+constexpr uint32_t kBox = 64 * 128;            // one (64 rows × 64 bf16) swizzled box: 8 KB
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed; a phase
+// that never completes (a lost load) traps after ~2^28 polls instead of
+// holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint32_t polls = 0;
+  do {
+    if (++polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand.  K-major
+// (rows of 128 bytes along the reduction): leading offset unused (16),
+// stride 1024 bytes between 8-row groups; a k16 step adds 32 bytes.
+// MN-major (the transposed read): the reduction runs over rows, 1024 bytes
+// between 8-row groups; every MN-major product here is 64 wide, exactly one
+// swizzle atom, so the leading offset (between atoms) is never used and is
+// given the same 1024; a k16 step adds 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) { return desc_sw128(addr, 16); }
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) { return desc_sw128(addr, 1024); }
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator accesses across wgmma issue/wait
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WGMMA_D32                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WGMMA_REGS32                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64×64 fp32) = [d +] A·B, A (64×16) and B (16×64) K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A·B, A (64×16 bf16) in registers, B (16×64) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -239,320 +398,386 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t u32_at(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 16 rows of a (T, dim) head starting at row0 as m16n8k16 A fragments over
-// the (padded) head dim: a0 (g, 2t..) a1 (g+8, 2t..) a2 (g, 8+2t..) a3 (g+8, 8+2t..)
-template <int DP>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[DP / 16][4], const uint16_t* base,
-                                             int row0, int seq, int dim, int g, int t) {
-  auto at = [&](int r, int c) -> uint16_t {
-    return (r < seq && c < dim) ? base[static_cast<size_t>(r) * dim + c] : uint16_t(0);
-  };
+// Accumulator layout of m64n64 (thread = 128·wg + 32·warp + 4·g + t):
+//   d[4j + 2i + c] is row 16·warp + g + 8i, column 8j + 2t + c.
+// Columns 16kk..16kk+15 of it, packed to bf16, are the A registers of k16
+// step kk: {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], ..}, {d[8kk+6], ..}.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&d)[32]) {
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    a[kk][0] = pack_raw(at(row0 + g, c), at(row0 + g, c + 1));
-    a[kk][1] = pack_raw(at(row0 + g + 8, c), at(row0 + g + 8, c + 1));
-    a[kk][2] = pack_raw(at(row0 + g, c + 8), at(row0 + g, c + 9));
-    a[kk][3] = pack_raw(at(row0 + g + 8, c + 8), at(row0 + g + 8, c + 9));
-  }
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
-// rows [r0, r0 + n) of two (T, dim) heads into shared tiles of row stride
-// DP + 8, zero-padded past seq and dim
-template <int DP>
-__device__ __forceinline__ void load_tiles(uint16_t* xs, uint16_t* ys, const uint16_t* x,
-                                           const uint16_t* y, int r0, int n, int seq, int dim,
-                                           bool vec16, int tid) {
-  constexpr int kStride = DP + 8;
-  if (vec16) {  // dim % 8 == 0 and 16-byte aligned rows: 8 values a load
-    constexpr int kChunks = DP / 8;
-    for (int idx = tid; idx < n * kChunks; idx += kThreadsB) {
-      const int j = idx / kChunks;
-      const int c = (idx - j * kChunks) * 8;
-      const int r = r0 + j;
-      uint4 xv = make_uint4(0, 0, 0, 0), yv = make_uint4(0, 0, 0, 0);
-      if (r < seq && c < dim) {
-        const size_t off = static_cast<size_t>(r) * dim + c;
-        xv = *reinterpret_cast<const uint4*>(x + off);
-        yv = *reinterpret_cast<const uint4*>(y + off);
-      }
-      *reinterpret_cast<uint4*>(xs + j * kStride + c) = xv;
-      *reinterpret_cast<uint4*>(ys + j * kStride + c) = yv;
+// this warpgroup's 64 × 64 accumulator, times mul, as bf16 into a box laid
+// out as TMA's 128-byte swizzle (16-byte chunk j of row r at j ^ (r % 8))
+__device__ __forceinline__ void acc_to_box(uint8_t* box, const float (&d)[32], float mul, int warp,
+                                           int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * warp + g + 8 * i;
+      *reinterpret_cast<uint32_t*>(box + r * 128 + ((j ^ g) << 4) + 4 * t) =
+          pack_bf16(d[4 * j + 2 * i] * mul, d[4 * j + 2 * i + 1] * mul);
     }
-  } else {
-    for (int idx = tid; idx < n * DP; idx += kThreadsB) {
-      const int j = idx / DP;
-      const int c = idx - j * DP;
-      const int r = r0 + j;
-      const bool in = r < seq && c < dim;
-      const size_t off = static_cast<size_t>(r) * dim + c;
-      xs[j * kStride + c] = in ? x[off] : uint16_t(0);
-      ys[j * kStride + c] = in ? y[off] : uint16_t(0);
-    }
-  }
 }
 
-// Fragment layouts of m16n8k16 (lane = 4·g + t):
-//   A (16x16, row-major): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 8+2t..)
-//                         a3 (g+8, 8+2t..)
-//   B (16x8, k-major):    b0 (k 2t..2t+1, n g)  b1 (k 8+2t.., n g)
-//   C (16x8):             c0,c1 (g, 2t..2t+1)   c2,c3 (g+8, 2t..2t+1)
-// Two C tiles of 8 columns are one A fragment over 16 columns, so P and dS
-// go from one product's accumulators into the next product's A operand.
-template <int DP>
-__global__ void __launch_bounds__(kThreadsB)
-attn_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                        const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const uint8_t* __restrict__ key_valid, uint16_t* __restrict__ dq,
-                        int n_heads, int seq, int dim, float scale, float scale_log2,
-                        bool vec16) {
-  constexpr int kSteps = DP / 16;
-  constexpr int kKeyTiles = kKeyTile / 8;
-  constexpr int kDimTiles = DP / 8;
-  constexpr int kStride = DP + 8;
-  __shared__ __align__(16) uint16_t ks[kKeyTile * kStride];
-  __shared__ __align__(16) uint16_t vs[kKeyTile * kStride];
-  __shared__ float key_bias[kKeyTile];  // 0 for a valid key, -inf otherwise
+// Shared memory of both kernels, from a 1024-byte-aligned base:
+//   fixed  [ATOMS][2 halves] boxes of the first operand (K or Q), then of the
+//          second (V or dO): the block's 128 rows, 64 per warpgroup
+//   ring   kStages × ([ATOMS] boxes of the first streamed operand (Q or K),
+//          [ATOMS] of the second (dO or V))
+//   bars   full[kStages], empty[kStages], fixed
+template <int ATOMS>
+struct Layout {
+  static constexpr uint32_t kFixed = 2 * ATOMS * 2 * kBox;
+  static constexpr uint32_t kStage = 2 * ATOMS * kBox;
+  static constexpr uint32_t kBars = kFixed + kStages * kStage;
+  static constexpr uint32_t kBytes = kBars + 8 * (2 * kStages + 1) + 1024;  // + alignment slack
+};
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
+template <int ATOMS>
+__global__ void __launch_bounds__(kThreadsW, 1)
+attn_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const __grid_constant__ CUtensorMap map_dk,
+                               const __grid_constant__ CUtensorMap map_dv,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               const uint8_t* __restrict__ key_valid, int n_heads, int seq,
+                               float scale, float scale_log2) {
+  using L = Layout<ATOMS>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t s_k = base, s_v = base + ATOMS * 2 * kBox, s_ring = base + L::kFixed;
+  const uint32_t bars = base + L::kBars;
+  const uint32_t kv_bar = bars + 16 * kStages;
+
   const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int bh = b * n_heads + blockIdx.y;
+  const int key0 = blockIdx.x * kBlockRows;
+  const int n_tiles = (seq + 63) / 64;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);                 // full: the producer's arrive + bytes
+      mbar_init(bars + 8 * (kStages + s), 8);     // empty: one arrive per consumer warp
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // producer warp: one thread issues every load
+    if (tid == kConsumers) {
+      mbar_expect_tx(kv_bar, L::kFixed);
+      for (int a = 0; a < ATOMS; ++a)
+        for (int half = 0; half < 2; ++half) {
+          tma_load_3d(s_k + (2 * a + half) * kBox, &map_k, kv_bar, 64 * a, key0 + 64 * half, bh);
+          tma_load_3d(s_v + (2 * a + half) * kBox, &map_v, kv_bar, 64 * a, key0 + 64 * half, bh);
+        }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(bars + 8 * (kStages + s), (i / kStages - 1) & 1);
+        const uint32_t st = s_ring + s * L::kStage;
+        const uint32_t full = bars + 8 * s;
+        mbar_expect_tx(full, L::kStage);
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load_3d(st + a * kBox, &map_q, full, 64 * a, 64 * i, bh);
+          tma_load_3d(st + (ATOMS + a) * kBox, &map_do, full, 64 * a, 64 * i, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int row0 = blockIdx.x * kOwnB + (tid >> 5) * 16;
-  const size_t rows = (static_cast<size_t>(b) * n_heads + h) * static_cast<size_t>(seq);
-  const size_t head = rows * dim;
+  const int key = key0 + 64 * wg + 16 * warp + g;  // this thread's rows: key, key + 8
   const uint8_t* valid = key_valid + static_cast<size_t>(b) * seq;
+  const bool ok0 = key < seq && valid[key] != 0;
+  const bool ok1 = key + 8 < seq && valid[key + 8] != 0;
+  const float* lse_h = lse + static_cast<size_t>(bh) * seq;
+  const float* delta_h = delta + static_cast<size_t>(bh) * seq;
 
-  uint32_t qa[kSteps][4], da[kSteps][4];
-  load_a_frags<DP>(qa, q + head, row0, seq, dim, g, t);
-  load_a_frags<DP>(da, dout + head, row0, seq, dim, g, t);
-  const int r0 = row0 + g;
-  const int r1 = row0 + g + 8;
-  const float lse0 = r0 < seq ? lse[rows + r0] : INFINITY;
-  const float lse1 = r1 < seq ? lse[rows + r1] : INFINITY;
-  const float dl0 = r0 < seq ? delta[rows + r0] : 0.f;
-  const float dl1 = r1 < seq ? delta[rows + r1] : 0.f;
-
-  float acc[kDimTiles][4];
+  float dk[ATOMS][32], dv[ATOMS][32];
 #pragma unroll
-  for (int j = 0; j < kDimTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
-    __syncthreads();
-    load_tiles<DP>(ks, vs, k + head, v + head, k0, kKeyTile, seq, dim, vec16, tid);
-    if (tid < kKeyTile)
-      key_bias[tid] = (k0 + tid < seq && valid[k0 + tid] != 0) ? 0.f : -INFINITY;
-    __syncthreads();
-
-    // S = Q·Kᵀ and dP = dO·Vᵀ for this warp's 16 rows x 64 keys
-    float s[kKeyTiles][4], dp[kKeyTiles][4];
+  for (int a = 0; a < ATOMS; ++a)
 #pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      const uint16_t* krow = ks + (j * 8 + g) * kStride + 2 * t;
-      const uint16_t* vrow = vs + (j * 8 + g) * kStride + 2 * t;
+    for (int r = 0; r < 32; ++r) dk[a][r] = dv[a][r] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const uint32_t st = s_ring + s * L::kStage;
+    // the tile's lse and delta at this thread's query columns 8j + 2t + c
+    // (L1/L2 hits: every warp reads the same 64 values), loaded before the
+    // products so their latency hides behind them; columns past T get
+    // P = 0 below, whatever is read there
+    const int q0 = 64 * i;
+    float l_r[16], d_r[16];
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        mma_16816(s[j], qa[kk], u32_at(krow + kk * 16), u32_at(krow + kk * 16 + 8));
-        mma_16816(dp[j], da[kk], u32_at(vrow + kk * 16), u32_at(vrow + kk * 16 + 8));
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int q = min(q0 + 8 * j + 2 * t + c, seq - 1);
+        l_r[2 * j + c] = lse_h[q];
+        d_r[2 * j + c] = delta_h[q];
       }
+    mbar_wait(bars + 8 * s, (i / kStages) & 1);
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: this warpgroup's 64 keys × the tile's 64 queries
+    float st_acc[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * ATOMS; ++kk)
+      wgmma_ss(st_acc, desc_k(s_k + (kk / 4) * 2 * kBox + wg * kBox + (kk % 4) * 32),
+               desc_k(st + (kk / 4) * kBox + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4 * ATOMS; ++kk)
+      wgmma_ss(dpt, desc_k(s_v + (kk / 4) * 2 * kBox + wg * kBox + (kk % 4) * 32),
+               desc_k(st + (ATOMS + kk / 4) * kBox + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+
+    // Pᵀ in place of Sᵀ, as predicated selects (0 for a padded key row
+    // and for query columns past T); measured faster here than an added
+    // −inf bias, unlike dq, whose mask load did branch
+    wgmma_wait<1>();
+    fence_acc(st_acc);
+    const bool tail = q0 + 64 > seq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      const bool in0 = !tail || q0 + c < seq;
+      const bool in1 = !tail || q0 + c + 1 < seq;
+      const float la = l_r[2 * j], lb = l_r[2 * j + 1];
+      st_acc[4 * j + 0] = (ok0 && in0) ? fast_exp2(fmaf(st_acc[4 * j + 0], scale_log2, -la)) : 0.f;
+      st_acc[4 * j + 1] = (ok0 && in1) ? fast_exp2(fmaf(st_acc[4 * j + 1], scale_log2, -lb)) : 0.f;
+      st_acc[4 * j + 2] = (ok1 && in0) ? fast_exp2(fmaf(st_acc[4 * j + 2], scale_log2, -la)) : 0.f;
+      st_acc[4 * j + 3] = (ok1 && in1) ? fast_exp2(fmaf(st_acc[4 * j + 3], scale_log2, -lb)) : 0.f;
+    }
+    // dSᵀ = Pᵀ∘(dPᵀ − D) in place of dPᵀ
+    wgmma_wait<0>();
+    fence_acc(dpt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float da = d_r[2 * j], db = d_r[2 * j + 1];
+      dpt[4 * j + 0] = st_acc[4 * j + 0] * (dpt[4 * j + 0] - da);
+      dpt[4 * j + 1] = st_acc[4 * j + 1] * (dpt[4 * j + 1] - db);
+      dpt[4 * j + 2] = st_acc[4 * j + 2] * (dpt[4 * j + 2] - da);
+      dpt[4 * j + 3] = st_acc[4 * j + 3] * (dpt[4 * j + 3] - db);
     }
 
-    // dS = P∘(dP − D), in place of S
+    // dV += Pᵀ·dO and dK += dSᵀ·Q, 16 queries per step, B read MN-major
+    uint32_t pa[4][4], sa[4][4];
+    acc_to_a(pa, st_acc);
+    acc_to_a(sa, dpt);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      const float bias0 = key_bias[j * 8 + 2 * t];
-      const float bias1 = key_bias[j * 8 + 2 * t + 1];
-      const float p0 = exp2f(fmaf(s[j][0], scale_log2, bias0) - lse0);
-      const float p1 = exp2f(fmaf(s[j][1], scale_log2, bias1) - lse0);
-      const float p2 = exp2f(fmaf(s[j][2], scale_log2, bias0) - lse1);
-      const float p3 = exp2f(fmaf(s[j][3], scale_log2, bias1) - lse1);
-      s[j][0] = p0 * (dp[j][0] - dl0);
-      s[j][1] = p1 * (dp[j][1] - dl0);
-      s[j][2] = p2 * (dp[j][2] - dl1);
-      s[j][3] = p3 * (dp[j][3] - dl1);
-    }
-
-    // dQ += dS·K, 16 keys per step
+    for (int kq = 0; kq < 4; ++kq)
 #pragma unroll
-    for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-      const float* sa = s[2 * kk];
-      const float* sb = s[2 * kk + 1];
-      const uint32_t a[4] = {pack_bf16(sa[0], sa[1]), pack_bf16(sa[2], sa[3]),
-                             pack_bf16(sb[0], sb[1]), pack_bf16(sb[2], sb[3])};
-      const uint16_t* krow = ks + (kk * 16 + 2 * t) * kStride + g;
-#pragma unroll
-      for (int j = 0; j < kDimTiles; ++j) {
-        const uint16_t* kc = krow + j * 8;
-        mma_16816(acc[j], a, pack_raw(kc[0], kc[kStride]), pack_raw(kc[8 * kStride], kc[9 * kStride]));
+      for (int a = 0; a < ATOMS; ++a) {
+        wgmma_rs(dv[a], pa[kq], desc_mn(st + (ATOMS + a) * kBox + kq * 2048));
+        wgmma_rs(dk[a], sa[kq], desc_mn(st + a * kBox + kq * 2048));
       }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a) {
+      fence_acc(dk[a]);
+      fence_acc(dv[a]);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (kStages + s));
   }
 
+  // dk, dv over this warpgroup's own K and V boxes, then one TMA store each
 #pragma unroll
-  for (int j = 0; j < kDimTiles; ++j) {
-    const int c = j * 8 + 2 * t;
-    const __nv_bfloat162 w0 = __floats2bfloat162_rn(acc[j][0] * scale, acc[j][1] * scale);
-    const __nv_bfloat162 w1 = __floats2bfloat162_rn(acc[j][2] * scale, acc[j][3] * scale);
-    const uint32_t u0 = *reinterpret_cast<const uint32_t*>(&w0);
-    const uint32_t u1 = *reinterpret_cast<const uint32_t*>(&w1);
-    if (r0 < seq) {
-      uint16_t* row = dq + head + static_cast<size_t>(r0) * dim;
-      if (c < dim) row[c] = static_cast<uint16_t>(u0 & 0xffffu);
-      if (c + 1 < dim) row[c + 1] = static_cast<uint16_t>(u0 >> 16);
+  for (int a = 0; a < ATOMS; ++a) {
+    acc_to_box(gbase + (s_k - base) + (2 * a + wg) * kBox, dk[a], scale, warp, g, t);
+    acc_to_box(gbase + (s_v - base) + (2 * a + wg) * kBox, dv[a], 1.f, warp, g, t);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(wg);
+  if ((tid & 127) == 0 && key0 + 64 * wg < seq) {
+    for (int a = 0; a < ATOMS; ++a) {
+      tma_store_3d(&map_dk, s_k + (2 * a + wg) * kBox, 64 * a, key0 + 64 * wg, bh);
+      tma_store_3d(&map_dv, s_v + (2 * a + wg) * kBox, 64 * a, key0 + 64 * wg, bh);
     }
-    if (r1 < seq) {
-      uint16_t* row = dq + head + static_cast<size_t>(r1) * dim;
-      if (c < dim) row[c] = static_cast<uint16_t>(u1 & 0xffffu);
-      if (c + 1 < dim) row[c + 1] = static_cast<uint16_t>(u1 >> 16);
-    }
+    tma_store_drain();
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreadsB)
-attn_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                         const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const uint8_t* __restrict__ key_valid, uint16_t* __restrict__ dk,
-                         uint16_t* __restrict__ dv, int n_heads, int seq, int dim, float scale,
-                         float scale_log2, bool vec16) {
-  constexpr int kSteps = DP / 16;
-  constexpr int kQTiles = kQueryTile / 8;
-  constexpr int kDimTiles = DP / 8;
-  constexpr int kStride = DP + 8;
-  __shared__ __align__(16) uint16_t qs[kQueryTile * kStride];
-  __shared__ __align__(16) uint16_t dos[kQueryTile * kStride];
-  __shared__ float ls[kQueryTile];
-  __shared__ float dls[kQueryTile];
+template <int ATOMS>
+__global__ void __launch_bounds__(kThreadsW, 1)
+attn_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const __grid_constant__ CUtensorMap map_dq,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              const uint8_t* __restrict__ key_valid, int n_heads, int seq,
+                              float scale, float scale_log2) {
+  using L = Layout<ATOMS>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t s_q = base, s_do = base + ATOMS * 2 * kBox, s_ring = base + L::kFixed;
+  const uint32_t bars = base + L::kBars;
+  const uint32_t qdo_bar = bars + 16 * kStages;
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
   const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int bh = b * n_heads + blockIdx.y;
+  const int q0 = blockIdx.x * kBlockRows;
+  const int n_tiles = (seq + 63) / 64;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStages + s), 8);
+    }
+    mbar_init(qdo_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      mbar_expect_tx(qdo_bar, L::kFixed);
+      for (int a = 0; a < ATOMS; ++a)
+        for (int half = 0; half < 2; ++half) {
+          tma_load_3d(s_q + (2 * a + half) * kBox, &map_q, qdo_bar, 64 * a, q0 + 64 * half, bh);
+          tma_load_3d(s_do + (2 * a + half) * kBox, &map_do, qdo_bar, 64 * a, q0 + 64 * half, bh);
+        }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(bars + 8 * (kStages + s), (i / kStages - 1) & 1);
+        const uint32_t st = s_ring + s * L::kStage;
+        const uint32_t full = bars + 8 * s;
+        mbar_expect_tx(full, L::kStage);
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load_3d(st + a * kBox, &map_k, full, 64 * a, 64 * i, bh);
+          tma_load_3d(st + (ATOMS + a) * kBox, &map_v, full, 64 * a, 64 * i, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int key0 = blockIdx.x * kOwnB + (tid >> 5) * 16;
-  const size_t rows = (static_cast<size_t>(b) * n_heads + h) * static_cast<size_t>(seq);
-  const size_t head = rows * dim;
+  const int row = q0 + 64 * wg + 16 * warp + g;  // this thread's rows: row, row + 8
+  const size_t rows = static_cast<size_t>(bh) * seq;
+  const float lse0 = row < seq ? lse[rows + row] : INFINITY;
+  const float lse1 = row + 8 < seq ? lse[rows + row + 8] : INFINITY;
+  const float dl0 = row < seq ? delta[rows + row] : 0.f;
+  const float dl1 = row + 8 < seq ? delta[rows + row + 8] : 0.f;
   const uint8_t* valid = key_valid + static_cast<size_t>(b) * seq;
 
-  uint32_t ka[kSteps][4], va[kSteps][4];
-  load_a_frags<DP>(ka, k + head, key0, seq, dim, g, t);
-  load_a_frags<DP>(va, v + head, key0, seq, dim, g, t);
-  const int kr0 = key0 + g;
-  const int kr1 = key0 + g + 8;
-  const bool ok0 = kr0 < seq && valid[kr0] != 0;
-  const bool ok1 = kr1 < seq && valid[kr1] != 0;
-
-  float dka[kDimTiles][4], dva[kDimTiles][4];
+  float dq[ATOMS][32];
 #pragma unroll
-  for (int j = 0; j < kDimTiles; ++j) {
-    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
-    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
+  for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) dq[a][r] = 0.f;
+
+  mbar_wait(qdo_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const uint32_t st = s_ring + s * L::kStage;
+    // bit 2j + c: key 8j + 2t + c of the tile (this thread's columns) is
+    // valid and below T; loaded before the products so the latency hides
+    // behind them.  Branch-free: a branch before the products makes ptxas
+    // serialise them (C7520).
+    const int k0 = 64 * i;
+    uint32_t key_bits = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int kc = k0 + 8 * j + 2 * t + c;
+        const uint32_t ok = (valid[min(kc, seq - 1)] != 0) & (kc < seq);
+        key_bits |= ok << (2 * j + c);
+      }
+    mbar_wait(bars + 8 * s, (i / kStages) & 1);
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ: this warpgroup's 64 queries × the tile's 64 keys
+    float s_acc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * ATOMS; ++kk)
+      wgmma_ss(s_acc, desc_k(s_q + (kk / 4) * 2 * kBox + wg * kBox + (kk % 4) * 32),
+               desc_k(st + (kk / 4) * kBox + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4 * ATOMS; ++kk)
+      wgmma_ss(dp, desc_k(s_do + (kk / 4) * 2 * kBox + wg * kBox + (kk % 4) * 32),
+               desc_k(st + (ATOMS + kk / 4) * kBox + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+
+    // P in place of S: a −inf bias for padded keys and keys past T
+    wgmma_wait<1>();
+    fence_acc(s_acc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float bias0 = ((key_bits >> (2 * j)) & 1u) ? 0.f : -INFINITY;
+      const float bias1 = ((key_bits >> (2 * j + 1)) & 1u) ? 0.f : -INFINITY;
+      s_acc[4 * j + 0] = fast_exp2(fmaf(s_acc[4 * j + 0], scale_log2, bias0 - lse0));
+      s_acc[4 * j + 1] = fast_exp2(fmaf(s_acc[4 * j + 1], scale_log2, bias1 - lse0));
+      s_acc[4 * j + 2] = fast_exp2(fmaf(s_acc[4 * j + 2], scale_log2, bias0 - lse1));
+      s_acc[4 * j + 3] = fast_exp2(fmaf(s_acc[4 * j + 3], scale_log2, bias1 - lse1));
+    }
+    // dS = P∘(dP − D) in place of dP
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      dp[4 * j + 0] = s_acc[4 * j + 0] * (dp[4 * j + 0] - dl0);
+      dp[4 * j + 1] = s_acc[4 * j + 1] * (dp[4 * j + 1] - dl0);
+      dp[4 * j + 2] = s_acc[4 * j + 2] * (dp[4 * j + 2] - dl1);
+      dp[4 * j + 3] = s_acc[4 * j + 3] * (dp[4 * j + 3] - dl1);
+    }
+
+    // dQ += dS·K, 16 keys per step, B = the K tile read MN-major
+    uint32_t sa[4][4];
+    acc_to_a(sa, dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a)
+        wgmma_rs(dq[a], sa[kk], desc_mn(st + a * kBox + kk * 2048));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a) fence_acc(dq[a]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (kStages + s));
   }
 
-  for (int q0 = 0; q0 < seq; q0 += kQueryTile) {
-    __syncthreads();
-    load_tiles<DP>(qs, dos, q + head, dout + head, q0, kQueryTile, seq, dim, vec16, tid);
-    if (tid < kQueryTile) {
-      const int qi = q0 + tid;
-      ls[tid] = qi < seq ? lse[rows + qi] : INFINITY;
-      dls[tid] = qi < seq ? delta[rows + qi] : 0.f;
-    }
-    __syncthreads();
-
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ for this warp's 16 keys x 32 queries
-    float st[kQTiles][4], dpt[kQTiles][4];
+  // dq over this warpgroup's own Q boxes, then one TMA store per box
 #pragma unroll
-    for (int j = 0; j < kQTiles; ++j) {
-      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-      const uint16_t* qrow = qs + (j * 8 + g) * kStride + 2 * t;
-      const uint16_t* drow = dos + (j * 8 + g) * kStride + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        mma_16816(st[j], ka[kk], u32_at(qrow + kk * 16), u32_at(qrow + kk * 16 + 8));
-        mma_16816(dpt[j], va[kk], u32_at(drow + kk * 16), u32_at(drow + kk * 16 + 8));
-      }
-    }
-
-    // Pᵀ in place of Sᵀ, dSᵀ = Pᵀ∘(dPᵀ − D) in place of dPᵀ
-#pragma unroll
-    for (int j = 0; j < kQTiles; ++j) {
-      const int qa = j * 8 + 2 * t;
-      const float la = ls[qa], lb = ls[qa + 1];
-      const float da = dls[qa], db = dls[qa + 1];
-      const float p0 = ok0 ? exp2f(fmaf(st[j][0], scale_log2, -la)) : 0.f;
-      const float p1 = ok0 ? exp2f(fmaf(st[j][1], scale_log2, -lb)) : 0.f;
-      const float p2 = ok1 ? exp2f(fmaf(st[j][2], scale_log2, -la)) : 0.f;
-      const float p3 = ok1 ? exp2f(fmaf(st[j][3], scale_log2, -lb)) : 0.f;
-      st[j][0] = p0;
-      st[j][1] = p1;
-      st[j][2] = p2;
-      st[j][3] = p3;
-      dpt[j][0] = p0 * (dpt[j][0] - da);
-      dpt[j][1] = p1 * (dpt[j][1] - db);
-      dpt[j][2] = p2 * (dpt[j][2] - da);
-      dpt[j][3] = p3 * (dpt[j][3] - db);
-    }
-
-    // dV += Pᵀ·dO and dK += dSᵀ·Q, 16 queries per step
-#pragma unroll
-    for (int kk = 0; kk < kQueryTile / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t sa[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                              pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                              pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                              pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-      const uint16_t* drow = dos + (kk * 16 + 2 * t) * kStride + g;
-      const uint16_t* qrow = qs + (kk * 16 + 2 * t) * kStride + g;
-#pragma unroll
-      for (int j = 0; j < kDimTiles; ++j) {
-        const uint16_t* dc = drow + j * 8;
-        const uint16_t* qc = qrow + j * 8;
-        mma_16816(dva[j], pa, pack_raw(dc[0], dc[kStride]), pack_raw(dc[8 * kStride], dc[9 * kStride]));
-        mma_16816(dka[j], sa, pack_raw(qc[0], qc[kStride]), pack_raw(qc[8 * kStride], qc[9 * kStride]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < kDimTiles; ++j) {
-    const int c = j * 8 + 2 * t;
-    const __nv_bfloat162 k0v = __floats2bfloat162_rn(dka[j][0] * scale, dka[j][1] * scale);
-    const __nv_bfloat162 k1v = __floats2bfloat162_rn(dka[j][2] * scale, dka[j][3] * scale);
-    const __nv_bfloat162 v0v = __floats2bfloat162_rn(dva[j][0], dva[j][1]);
-    const __nv_bfloat162 v1v = __floats2bfloat162_rn(dva[j][2], dva[j][3]);
-    const uint32_t uk0 = *reinterpret_cast<const uint32_t*>(&k0v);
-    const uint32_t uk1 = *reinterpret_cast<const uint32_t*>(&k1v);
-    const uint32_t uv0 = *reinterpret_cast<const uint32_t*>(&v0v);
-    const uint32_t uv1 = *reinterpret_cast<const uint32_t*>(&v1v);
-    if (kr0 < seq) {
-      const size_t off = head + static_cast<size_t>(kr0) * dim;
-      if (c < dim) { dk[off + c] = static_cast<uint16_t>(uk0 & 0xffffu); dv[off + c] = static_cast<uint16_t>(uv0 & 0xffffu); }
-      if (c + 1 < dim) { dk[off + c + 1] = static_cast<uint16_t>(uk0 >> 16); dv[off + c + 1] = static_cast<uint16_t>(uv0 >> 16); }
-    }
-    if (kr1 < seq) {
-      const size_t off = head + static_cast<size_t>(kr1) * dim;
-      if (c < dim) { dk[off + c] = static_cast<uint16_t>(uk1 & 0xffffu); dv[off + c] = static_cast<uint16_t>(uv1 & 0xffffu); }
-      if (c + 1 < dim) { dk[off + c + 1] = static_cast<uint16_t>(uk1 >> 16); dv[off + c + 1] = static_cast<uint16_t>(uv1 >> 16); }
-    }
+  for (int a = 0; a < ATOMS; ++a)
+    acc_to_box(gbase + (s_q - base) + (2 * a + wg) * kBox, dq[a], scale, warp, g, t);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(wg);
+  if ((tid & 127) == 0 && q0 + 64 * wg < seq) {
+    for (int a = 0; a < ATOMS; ++a)
+      tma_store_3d(&map_dq, s_q + (2 * a + wg) * kBox, 64 * a, q0 + 64 * wg, bh);
+    tma_store_drain();
   }
 }
 
@@ -562,7 +787,6 @@ struct BwdArgs {
   const uint8_t* key_valid;
   int batch, n_heads, seq, dim;
   float scale, scale_log2;
-  bool vec16;
   cudaStream_t stream;
 };
 
@@ -585,91 +809,171 @@ void launch_dq_f32(const BwdArgs& a, void* dq) {
       a.key_valid, static_cast<float*>(dq), a.n_heads, a.seq, a.dim, a.scale, a.scale_log2);
 }
 
-template <int DP>
-void launch_dkv_bf16(const BwdArgs& a, void* dk, void* dv) {
-  const dim3 grid((a.seq + kOwnB - 1) / kOwnB, a.n_heads, a.batch);
-  attn_bwd_dkv_bf16_kernel<DP><<<grid, kThreadsB, 0, a.stream>>>(
-      static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
-      static_cast<const uint16_t*>(a.v), static_cast<const uint16_t*>(a.dout), a.lse, a.delta,
-      a.key_valid, static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), a.n_heads, a.seq,
-      a.dim, a.scale, a.scale_log2, a.vec16);
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// extension does not link libcuda
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
-template <int DP>
-void launch_dq_bf16(const BwdArgs& a, void* dq) {
-  const dim3 grid((a.seq + kOwnB - 1) / kOwnB, a.n_heads, a.batch);
-  attn_bwd_dq_bf16_kernel<DP><<<grid, kThreadsB, 0, a.stream>>>(
-      static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
-      static_cast<const uint16_t*>(a.v), static_cast<const uint16_t*>(a.dout), a.lse, a.delta,
-      a.key_valid, static_cast<uint16_t*>(dq), a.n_heads, a.seq, a.dim, a.scale, a.scale_log2,
-      a.vec16);
+// (B·H, T, dim) bf16 rows as 3-D (dim, T, B·H), 64 × 64 boxes, 128-byte
+// swizzle; out-of-bounds elements read as zeros and are dropped on store
+bool encode_heads(CUtensorMap* map, const void* ptr, int bh, int seq, int dim) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dim), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dim) * 2,
+                                 static_cast<cuuint64_t>(seq) * dim * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// what TMA needs of the bf16 operands; nullptr when every check passes
+const char* check_tma(const BwdArgs& a, std::initializer_list<const void*> out) {
+  if (encode_tiled() == nullptr) return "cuTensorMapEncodeTiled is not available from the driver";
+  if (a.dim % 8 != 0) return "bf16 head dim must be a multiple of 8 (the wrapper pads it)";
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  for (const void* p : {a.q, a.k, a.v, a.dout})
+    if (!aligned(p)) return "bf16 backward operands must be 16-byte aligned";
+  for (const void* p : out)
+    if (!aligned(p)) return "bf16 backward outputs must be 16-byte aligned";
+  return nullptr;
+}
+
+const char* const kEncodeFailed = "cuTensorMapEncodeTiled refused a tensor map";
+
+template <int ATOMS>
+const char* launch_dkv_bf16(const BwdArgs& a, void* dk, void* dv) {
+  if (const char* err = check_tma(a, {dk, dv})) return err;
+  const int bh = a.batch * a.n_heads;
+  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+  if (!encode_heads(&mq, a.q, bh, a.seq, a.dim) || !encode_heads(&mk, a.k, bh, a.seq, a.dim) ||
+      !encode_heads(&mv, a.v, bh, a.seq, a.dim) || !encode_heads(&mdo, a.dout, bh, a.seq, a.dim) ||
+      !encode_heads(&mdk, dk, bh, a.seq, a.dim) || !encode_heads(&mdv, dv, bh, a.seq, a.dim))
+    return kEncodeFailed;
+  const auto kernel = attn_bwd_dkv_bf16_wgmma_kernel<ATOMS>;
+  const int smem = static_cast<int>(Layout<ATOMS>::kBytes);
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
+    return "cudaFuncSetAttribute refused the dkv kernel's shared memory";
+  const dim3 grid((a.seq + kBlockRows - 1) / kBlockRows, a.n_heads, a.batch);
+  kernel<<<grid, kThreadsW, smem, a.stream>>>(mq, mk, mv, mdo, mdk, mdv, a.lse, a.delta,
+                                              a.key_valid, a.n_heads, a.seq, a.scale,
+                                              a.scale_log2);
+  return nullptr;
+}
+
+template <int ATOMS>
+const char* launch_dq_bf16(const BwdArgs& a, void* dq) {
+  if (const char* err = check_tma(a, {dq})) return err;
+  const int bh = a.batch * a.n_heads;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  if (!encode_heads(&mq, a.q, bh, a.seq, a.dim) || !encode_heads(&mk, a.k, bh, a.seq, a.dim) ||
+      !encode_heads(&mv, a.v, bh, a.seq, a.dim) || !encode_heads(&mdo, a.dout, bh, a.seq, a.dim) ||
+      !encode_heads(&mdq, dq, bh, a.seq, a.dim))
+    return kEncodeFailed;
+  const auto kernel = attn_bwd_dq_bf16_wgmma_kernel<ATOMS>;
+  const int smem = static_cast<int>(Layout<ATOMS>::kBytes);
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
+    return "cudaFuncSetAttribute refused the dq kernel's shared memory";
+  const dim3 grid((a.seq + kBlockRows - 1) / kBlockRows, a.n_heads, a.batch);
+  kernel<<<grid, kThreadsW, smem, a.stream>>>(mq, mk, mv, mdo, mdq, a.lse, a.delta, a.key_valid,
+                                              a.n_heads, a.seq, a.scale, a.scale_log2);
+  return nullptr;
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, const uint8_t* key_valid, int batch,
-                  int n_heads, int seq, int dim, cudaStream_t stream) {
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  BwdArgs a{q, k, v, dout, lse, delta, key_valid, batch, n_heads, seq, dim, 0.f, 0.f, false, stream};
-  const double scale = 1.0 / sqrt(static_cast<double>(dim));
-  a.scale = static_cast<float>(scale);
-  a.scale_log2 = static_cast<float>(scale * 1.4426950408889634);
-  a.vec16 = dim % 8 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(dout);
-  return a;
+                  int n_heads, int seq, int dim, float scale, cudaStream_t stream) {
+  return BwdArgs{q,     k,     v,   dout, lse, delta, key_valid, batch, n_heads, seq, dim, scale,
+                 static_cast<float>(static_cast<double>(scale) * 1.4426950408889634), stream};
 }
+
+const char* const kBadDim = "head dim outside [1, 128]";
 
 }  // namespace
 
-// Launch on `stream` without synchronising.  Return false, launching
-// nothing, for a head dim outside [1, 128]; the caller checks
-// cudaGetLastError.  q, k, v, dout, dq, dk, dv: contiguous (B, H, T, D) in
-// one dtype; lse, delta: (B, H, T) fp32; key_valid: (B, T) uint8.
-bool masked_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
-                                     const void* dout, const float* lse, const float* delta,
-                                     const uint8_t* key_valid, void* dk, void* dv, int batch,
-                                     int n_heads, int seq, int dim, bool bf16,
-                                     cudaStream_t stream) {
-  if (dim < 1 || dim > 128) return false;
-  const BwdArgs a = make_args(q, k, v, dout, lse, delta, key_valid, batch, n_heads, seq, dim, stream);
-  if (bf16) {
-    if (dim <= 16) launch_dkv_bf16<16>(a, dk, dv);
-    else if (dim <= 32) launch_dkv_bf16<32>(a, dk, dv);
-    else if (dim <= 48) launch_dkv_bf16<48>(a, dk, dv);
-    else if (dim <= 64) launch_dkv_bf16<64>(a, dk, dv);
-    else if (dim <= 96) launch_dkv_bf16<96>(a, dk, dv);
-    else launch_dkv_bf16<128>(a, dk, dv);
-  } else {
-    if (dim <= 8) launch_dkv_f32<8>(a, dk, dv);
-    else if (dim <= 16) launch_dkv_f32<16>(a, dk, dv);
-    else if (dim <= 32) launch_dkv_f32<32>(a, dk, dv);
-    else if (dim <= 48) launch_dkv_f32<48>(a, dk, dv);
-    else if (dim <= 64) launch_dkv_f32<64>(a, dk, dv);
-    else if (dim <= 96) launch_dkv_f32<96>(a, dk, dv);
-    else launch_dkv_f32<128>(a, dk, dv);
-  }
-  return true;
+// Launch on `stream` without synchronising; return nullptr, or why nothing
+// was launched.  The caller checks cudaGetLastError.  q, k, v, dout, dq, dk,
+// dv: contiguous (B, H, T, D) in one dtype; lse, delta: (B, H, T) fp32;
+// key_valid: (B, T) uint8; scale: the softmax scale of the true head dim
+// (bf16 takes D padded to a multiple of 8, 16-byte-aligned pointers).
+const char* masked_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                                            const void* dout, const float* lse,
+                                            const float* delta, const uint8_t* key_valid,
+                                            void* dk, void* dv, int batch, int n_heads, int seq,
+                                            int dim, float scale, bool bf16,
+                                            cudaStream_t stream) {
+  if (dim < 1 || dim > 128) return kBadDim;
+  const BwdArgs a =
+      make_args(q, k, v, dout, lse, delta, key_valid, batch, n_heads, seq, dim, scale, stream);
+  if (bf16) return dim <= 64 ? launch_dkv_bf16<1>(a, dk, dv) : launch_dkv_bf16<2>(a, dk, dv);
+  if (dim <= 8) launch_dkv_f32<8>(a, dk, dv);
+  else if (dim <= 16) launch_dkv_f32<16>(a, dk, dv);
+  else if (dim <= 32) launch_dkv_f32<32>(a, dk, dv);
+  else if (dim <= 48) launch_dkv_f32<48>(a, dk, dv);
+  else if (dim <= 64) launch_dkv_f32<64>(a, dk, dv);
+  else if (dim <= 96) launch_dkv_f32<96>(a, dk, dv);
+  else launch_dkv_f32<128>(a, dk, dv);
+  return nullptr;
 }
 
-bool masked_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
-                                    const void* dout, const float* lse, const float* delta,
-                                    const uint8_t* key_valid, void* dq, int batch, int n_heads,
-                                    int seq, int dim, bool bf16, cudaStream_t stream) {
-  if (dim < 1 || dim > 128) return false;
-  const BwdArgs a = make_args(q, k, v, dout, lse, delta, key_valid, batch, n_heads, seq, dim, stream);
-  if (bf16) {
-    if (dim <= 16) launch_dq_bf16<16>(a, dq);
-    else if (dim <= 32) launch_dq_bf16<32>(a, dq);
-    else if (dim <= 48) launch_dq_bf16<48>(a, dq);
-    else if (dim <= 64) launch_dq_bf16<64>(a, dq);
-    else if (dim <= 96) launch_dq_bf16<96>(a, dq);
-    else launch_dq_bf16<128>(a, dq);
-  } else {
-    if (dim <= 8) launch_dq_f32<8>(a, dq);
-    else if (dim <= 16) launch_dq_f32<16>(a, dq);
-    else if (dim <= 32) launch_dq_f32<32>(a, dq);
-    else if (dim <= 48) launch_dq_f32<48>(a, dq);
-    else if (dim <= 64) launch_dq_f32<64>(a, dq);
-    else if (dim <= 96) launch_dq_f32<96>(a, dq);
-    else launch_dq_f32<128>(a, dq);
-  }
-  return true;
+const char* masked_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
+                                           const void* dout, const float* lse, const float* delta,
+                                           const uint8_t* key_valid, void* dq, int batch,
+                                           int n_heads, int seq, int dim, float scale, bool bf16,
+                                           cudaStream_t stream) {
+  if (dim < 1 || dim > 128) return kBadDim;
+  const BwdArgs a =
+      make_args(q, k, v, dout, lse, delta, key_valid, batch, n_heads, seq, dim, scale, stream);
+  if (bf16) return dim <= 64 ? launch_dq_bf16<1>(a, dq) : launch_dq_bf16<2>(a, dq);
+  if (dim <= 8) launch_dq_f32<8>(a, dq);
+  else if (dim <= 16) launch_dq_f32<16>(a, dq);
+  else if (dim <= 32) launch_dq_f32<32>(a, dq);
+  else if (dim <= 48) launch_dq_f32<48>(a, dq);
+  else if (dim <= 64) launch_dq_f32<64>(a, dq);
+  else if (dim <= 96) launch_dq_f32<96>(a, dq);
+  else launch_dq_f32<128>(a, dq);
+  return nullptr;
+}
+
+// Registers, static and dynamic shared memory, local (spill) bytes and the
+// thread count of the bf16 backward kernel that serves `dim`: kernel 0 is
+// dq, 1 is dkv.  out[5]; returns the cudaFuncGetAttributes error.
+cudaError_t masked_attention_bwd_attributes(int kernel, int dim, int* out) {
+  cudaFuncAttributes fa{};
+  const bool wide = dim > 64;
+  const void* fn =
+      kernel == 0
+          ? (wide ? reinterpret_cast<const void*>(attn_bwd_dq_bf16_wgmma_kernel<2>)
+                  : reinterpret_cast<const void*>(attn_bwd_dq_bf16_wgmma_kernel<1>))
+          : (wide ? reinterpret_cast<const void*>(attn_bwd_dkv_bf16_wgmma_kernel<2>)
+                  : reinterpret_cast<const void*>(attn_bwd_dkv_bf16_wgmma_kernel<1>));
+  const cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.sharedSizeBytes);
+  out[2] = static_cast<int>(wide ? Layout<2>::kBytes : Layout<1>::kBytes);
+  out[3] = static_cast<int>(fa.localSizeBytes);
+  out[4] = kThreadsW;
+  return err;
 }

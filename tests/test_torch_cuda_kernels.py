@@ -9,8 +9,10 @@ conftest there:
 
 Tolerances: attention forward max abs error 1e-4 (fp32: summation order,
 exp2 against exp) and 2e-2 (bf16 output rounding); backward max |err| /
-max |ref| of dq, dk, dv, the same two; MAS indices equal (fp32 adds and
-maxes in one order).
+max |ref| of dq, dk, dv, the same two, both through autograd and for each
+backward kernel alone against ``masked_attention_bwd_plain`` fed the
+forward kernel's log-sum-exp; padded keys get dk = dv = 0 exactly; MAS
+indices equal (fp32 adds and maxes in one order).
 """
 
 import pytest
@@ -65,6 +67,49 @@ def test_kernel_backward_matches_plain_on_card(gen, shape, dtype):
     ref = torch.autograd.grad(ta.masked_self_attention_plain(*ref_in, valid), ref_in, dout.float())
     for g, r in zip(grads, ref):
         assert ((g.float() - r).abs().max() / r.abs().max()).item() <= TOL[dtype]
+
+
+def _bwd_case(gen, shape, dtype):
+    """Ragged keys (row 0 one valid key), the forward kernel's lse, delta."""
+    b, h, t, d = shape
+    valid = _valid(b, t, gen)
+    valid_u8 = valid.to(torch.uint8)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    out, lse = ta._launch_fwd(q, k, v, valid_u8, with_lse=True)
+    delta = (dout.float() * out.float()).sum(-1)
+    return (q, k, v, dout, lse, delta, valid_u8), valid
+
+
+def _rel(got, ref):
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(29, 5, 1088, 64), (2, 6, 4000, 48), (2, 3, 96, 36)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_each_backward_kernel_matches_its_plain_contract(gen, shape, dtype):
+    args, valid = _bwd_case(gen, shape, getattr(torch, dtype))
+    q, k, v, dout, lse, delta, _ = args
+    dk, dv = ta.masked_attention_bwd_dkv(*args)
+    dq = ta.masked_attention_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert (lse - ta.masked_attention_lse_plain(q, k, valid)).abs().max().item() <= 1e-3
+    ref = ta.masked_attention_bwd_plain(q.float(), k.float(), v.float(), dout.float(), lse, delta, valid)
+    for got, r in zip((dq, dk, dv), ref):
+        assert got.shape == q.shape and got.dtype == q.dtype
+        assert _rel(got, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 5, 333, 64), (3, 6, 200, 48)])
+def test_padded_keys_get_exactly_zero_dk_dv(gen, shape):
+    args, valid = _bwd_case(gen, shape, torch.bfloat16)
+    dk, dv = ta.masked_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    padded = (valid == 0)[:, None, :, None].expand(dk.shape)
+    assert padded.any()
+    assert (dk[padded] == 0).all() and (dv[padded] == 0).all()
+    assert (dk[~padded] != 0).any()
 
 
 @pytest.mark.cuda
