@@ -8,15 +8,21 @@ JSON line:
   1. device   card name, count, ``nvidia-smi`` name and power limit
   2. build    compile every hand-written kernel from ops/csrc
   3. kernels  each kernel against its plain PyTorch version on the card
-              (masked attention forward: max abs error in fp32; its
+              (masked attention forward: max abs error, bf16 through the
+              wrapper and each of its two layouts, at the B=1, B=16 and
+              ragged shapes and a padded head dim; its log2 log-sum-exp
+              against the plain one, with a batch row that has no valid
+              key (+inf lse, NaN output); its
               backward: max |err| / max |ref| of dq, dk, dv against
               autograd through the plain version, and each backward kernel
               alone against the plain version of its own contract, from the
               log-sum-exp the forward kernel wrote; MAS: indices equal to
               the plain version and to the numpy oracle), then timed with
               CUDA events beside the plain version, the bound and the
-              library call; the backward kernels' registers, shared memory
-              and spills
+              library call, K1 at the B=1, B=16 and training shapes, MAS on
+              each side of its Tx dispatch boundary; every bf16 attention
+              kernel's and the MAS kernels' registers, shared memory and
+              spills
   4. model    synthesis at full width (MatchaConfig + VocosConfig, bf16,
               random weights from a seeded torch.Generator) through the
               synthesizer's entry points: fused B=1 at the production
@@ -98,11 +104,12 @@ def cuda_ms(fn, reps: int = 21, per_rep: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def attention_bound_ms(b, h, t, d, dtype, n_valid_keys) -> tuple[float, str]:
-    """Least time for one call: q, k, v read once, out written once, the
-    (B, T) mask read once; 4·B·H·T·(valid keys)·D flops at the dtype's peak."""
+def attention_bound_ms(b, h, t, d, dtype, n_valid_keys, with_lse=False) -> tuple[float, str]:
+    """Least time for one call: q, k, v read once, out (and the fp32 lse)
+    written once, the (B, T) mask read once; 4·B·H·T·(valid keys)·D flops
+    at the dtype's peak."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4 * b * h * t * d * elem + b * t
+    nbytes = 4 * b * h * t * d * elem + b * t + (4 * b * h * t if with_lse else 0)
     flops = 4 * b * h * t * d * n_valid_keys
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
@@ -129,48 +136,120 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
 
 
+K1_CHECK_SHAPES = [(16, 6, 256, 48), (16, 5, 512, 64), (16, 5, 256, 64), (2, 6, 4000, 48), (3, 5, 333, 64),
+                   (1, 6, 256, 48), (1, 5, 512, 64), (1, 5, 256, 64), (2, 3, 96, 36)]
+K1_LSE_SHAPES = [(62, 5, 512, 64), (3, 5, 333, 64), (2, 6, 4000, 48)]
+# (shape, with_lse): the B=1 request, the B=16 batch, the training step
+K1_TIME_SHAPES = [((1, 6, 256, 48), False), ((1, 5, 512, 64), False), ((1, 5, 256, 64), False),
+                  ((16, 6, 256, 48), False), ((16, 5, 512, 64), False), ((16, 5, 256, 64), False),
+                  ((62, 5, 512, 64), True), ((29, 5, 1088, 64), True)]
+# device times of the mma.sync K1 this design replaced, on an NVIDIA H100
+# 80GB HBM3 at 700 W (kernel_timing.py on the parent checkout; PERF.md)
+K1_EARLIER_MS = {(1, 6, 256, 48): 0.01087, (1, 5, 512, 64): 0.01827, (1, 5, 256, 64): 0.01116,
+                 (16, 6, 256, 48): 0.01596, (16, 5, 512, 64): 0.04801, (16, 5, 256, 64): 0.01782,
+                 (62, 5, 512, 64): 0.1744, (29, 5, 1088, 64): 0.3268}
+
+
+def ragged_valid(b, t, gen, empty_row=False):
+    """(B, T) float mask: random key lengths, row 0 one key, the last row
+    all T; with ``empty_row``, row 1 has no valid key."""
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    lengths[0], lengths[-1] = 1, t
+    if empty_row:
+        lengths[1] = 0
+    return (torch.arange(t, device="cuda")[None] < lengths[:, None]).float(), lengths
+
+
 def phase_kernels() -> dict:
-    """K1 against its plain version at the path's shapes, then timed."""
+    """K1 against its plain version at the paths' shapes (bf16 through the
+    wrapper and each layout on its own), its lse against the plain lse with a
+    batch row that has no valid key, then timed."""
     import torch.nn.functional as F
 
     from matcha_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
-    shapes = [(16, 6, 256, 48), (16, 5, 512, 64), (16, 5, 256, 64), (2, 6, 4000, 48), (3, 5, 333, 64)]
-    for shape in shapes:
+    for shape in K1_CHECK_SHAPES:
         b, h, t, d = shape
-        lengths = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
-        lengths[0], lengths[-1] = 1, t
-        valid = (torch.arange(t, device="cuda")[None] < lengths[:, None]).float()
+        valid, lengths = ragged_valid(b, t, gen)
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
-            out = att.masked_attention_fwd(q, k, v, valid)
-            torch.cuda.synchronize()
             ref = att.masked_self_attention_plain(q.float(), k.float(), v.float(), valid)
-            err = (out.float() - ref).abs().max().item()
-            ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype]
+            runs = {"wrapper": lambda: att.masked_attention_fwd(q, k, v, valid)}
+            if dtype == torch.bfloat16:
+                u8 = valid.to(torch.uint8)
+                runs.update({f"layout_{n}": (lambda n=n: att._launch_fwd(q, k, v, u8, False, layout=n)[0])
+                             for n in (1, 2)})
+            errs = {}
+            for name, run in runs.items():
+                out = run()
+                torch.cuda.synchronize()
+                check(out.shape == q.shape and out.dtype == dtype, f"K1 output {out.shape} {out.dtype}")
+                errs[name] = (out.float() - ref).abs().max().item() if torch.isfinite(out).all() else math.inf
+            err = max(errs.values())
+            ok = err <= TOL[dtype]
             emit({"phase": "kernel_check", "kernel": "masked_attention_fwd", "shape": list(shape),
-                  "dtype": str(dtype).split(".")[-1], "key_lengths": lengths.tolist(),
-                  "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
-            check(ok, f"masked_attention_fwd disagrees with its plain version at {shape} {dtype}: {err}")
+                  "dtype": str(dtype).split(".")[-1], "key_lengths": lengths.tolist()[:8],
+                  "max_abs_err": errs, "tol": TOL[dtype], "ok": ok})
+            check(ok, f"masked_attention_fwd disagrees with its plain version at {shape} {dtype}: {errs}")
             worst = max(worst, err)
 
+    worst_lse = 0.0
+    for shape in K1_LSE_SHAPES:
+        b, h, t, d = shape
+        valid, lengths = ragged_valid(b, t, gen, empty_row=True)
+        u8 = valid.to(torch.uint8)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+            ref = att.masked_self_attention_plain(q.float(), k.float(), v.float(), valid)
+            ref_lse = att.masked_attention_lse_plain(q, k, valid)
+            finite, keep = torch.isfinite(ref_lse), ~torch.isnan(ref)
+            for layout in ((1, 2) if dtype == torch.bfloat16 else (0,)):
+                out, lse = att._launch_fwd(q, k, v, u8, True, layout=layout)
+                torch.cuda.synchronize()
+                inf_same = bool(torch.equal(torch.isinf(lse), ~finite) and (lse[~finite] > 0).all())
+                nan_same = bool(torch.equal(torch.isnan(out), ~keep))
+                lse_err = (lse[finite] - ref_lse[finite]).abs().max().item()
+                err = (out.float()[keep] - ref[keep]).abs().max().item()
+                ok = inf_same and nan_same and lse_err <= LSE_TOL and err <= TOL[dtype]
+                emit({"phase": "kernel_check", "kernel": "masked_attention_fwd_lse", "shape": list(shape),
+                      "dtype": str(dtype).split(".")[-1], "layout": layout,
+                      "key_lengths": lengths.tolist()[:4], "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+                      "empty_row_lse_inf": inf_same, "empty_row_out_nan": nan_same,
+                      "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
+                check(ok, f"K1's lse or output disagrees at {shape} {dtype} layout {layout}: lse {lse_err}, "
+                          f"out {err}, +inf rows {inf_same}, NaN rows {nan_same}")
+                worst_lse = max(worst_lse, lse_err)
+                worst = max(worst, err)
+
     timed = {}
-    for shape in [(16, 6, 256, 48), (16, 5, 512, 64), (16, 5, 256, 64)]:
+    for shape, with_lse in K1_TIME_SHAPES:
         b, h, t, d = shape
         q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3))
         valid = torch.ones((b, t), device="cuda")
+        u8 = valid.to(torch.uint8)
         keep = valid[:, None, None, :] > 0
-        ms = cuda_ms(lambda: att.masked_attention_fwd(q, k, v, valid))
+        ms = cuda_ms(lambda: att._launch_fwd(q, k, v, u8, with_lse))
+        layouts = {n: cuda_ms(lambda n=n: att._launch_fwd(q, k, v, u8, with_lse, layout=n)) for n in (1, 2)}
         plain_ms = cuda_ms(lambda: att.masked_self_attention_plain(q, k, v, valid))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
-        bound_ms, bound_by = attention_bound_ms(b, h, t, d, torch.bfloat16, t)
-        timed[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms, bound_by = attention_bound_ms(b, h, t, d, torch.bfloat16, t, with_lse)
+        timed[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, tflops=4 * b * h * t * t * d / (ms * 1e-3) / 1e12,
+                            earlier_ms=K1_EARLIER_MS.get(shape),
+                            layout=kernels_ext().masked_attention_fwd_layout(b, h, t),
+                            layout_ms={str(n): x for n, x in layouts.items()})
         emit({"phase": "kernel_time", "kernel": "masked_attention_fwd", "shape": list(shape),
-              "dtype": "bfloat16", **timed[shape]})
-    return {"max_abs_err": worst, "timed": timed}
+              "dtype": "bfloat16", "with_lse": with_lse,
+              "earlier": "earlier_ms: the mma.sync kernel this design replaced (PERF.md)", **timed[shape]})
+    return {"max_abs_err": worst, "lse_max_abs_err": worst_lse, "timed": timed}
+
+
+def kernels_ext():
+    from matcha_tpu_torch.ops.extension import kernels
+
+    return kernels()
 
 
 def production_synthesizer(compute_dtype: str, attention_backend: str = "auto", seed: int = 0):
@@ -408,7 +487,12 @@ def phase_reference() -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_SHAPES = [(62, 5, 512, 64), (62, 5, 256, 64), (29, 5, 1088, 64), (29, 5, 544, 64)]
-MAS_SHAPES = [(62, 224, 1024), (29, 448, 2176), (3, 37, 333)]
+# the two training buckets, a ragged small case, and Tx = 512 / 513: the
+# last shape of the one-warp DP kernel and the first of the block-wide one
+MAS_SHAPES = [(62, 224, 1024), (29, 448, 2176), (3, 37, 333), (3, 512, 700), (3, 513, 700)]
+# device times of the block-barrier MAS kernel this design replaced, on an
+# NVIDIA H100 80GB HBM3 at 700 W (kernel_timing.py on the parent checkout)
+MAS_EARLIER_MS = {(62, 224, 1024): 0.5863, (29, 448, 2176): 1.6761}
 
 
 def mas_bound_ms(b, tx, ty) -> tuple[float, str]:
@@ -555,7 +639,8 @@ def phase_training_kernels() -> dict:
                            reps=3, per_rep=1, warmup=1)
         bound_ms, bound_by = mas_bound_ms(b, tx, ty)
         timed[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                            bound_by=bound_by, sequential_frames=ty)
+                            bound_by=bound_by, sequential_frames=ty, ns_per_frame=ms * 1e6 / ty,
+                            earlier_ms=MAS_EARLIER_MS.get(shape))
         emit({"phase": "kernel_time", "kernel": "mas", "shape": list(shape), **timed[shape]})
     return {"max_rel_err": worst, "timed": timed}
 
@@ -613,13 +698,17 @@ def phase_bwd_kernels() -> dict:
     return worst
 
 
-def phase_bwd_attributes() -> dict:
-    """Registers, shared memory and local (spill) bytes of the bf16 backward
-    kernels, one instance per head-dim class (D <= 64, 64 < D <= 128)."""
-    from matcha_tpu_torch.ops.extension import kernels
-
-    out = {f"{name}_d{d}": kernels().masked_attention_bwd_attributes(name, d)
+def phase_kernel_attributes() -> dict:
+    """Registers, shared memory and local (spill) bytes of the bf16
+    attention kernels, one instance per head-dim class (D <= 64,
+    64 < D <= 128) and forward layout, and of the MAS kernels at the two
+    training buckets and past the Tx boundary."""
+    ext = kernels_ext()
+    out = {f"{name}_d{d}": ext.masked_attention_bwd_attributes(name, d)
            for name in ("dkv", "dq") for d in (64, 128)}
+    out.update({f"fwd_layout{n}_d{d}": ext.masked_attention_fwd_attributes(n, d)
+                for n in (1, 2) for d in (64, 128)})
+    out.update({f"mas_{tx}x{ty}": ext.mas_attributes(tx, ty) for tx, ty in ((224, 1024), (448, 2176), (513, 700))})
     emit({"phase": "kernel_attributes", **out})
     return out
 
@@ -874,7 +963,7 @@ def main() -> int:
     k1 = phase_kernels()
     kt = phase_training_kernels()
     bwd_alone = phase_bwd_kernels()
-    phase_bwd_attributes()
+    phase_kernel_attributes()
     counters = train_counters()
 
     # main path 1: synthesis (model + server), counts read just after
@@ -912,6 +1001,7 @@ def main() -> int:
                      "matcha_tpu/ops/attention.py:117",
                      synthesis["masked_attention_fwd"] + training["masked_attention_fwd"],
                      k1["max_abs_err"], prod, shape=[16, 5, 512, 64], dtype="bfloat16",
+                     lse_max_abs_err=k1["lse_max_abs_err"],
                      launches_by_path={"synthesis": synthesis["masked_attention_fwd"],
                                        "training": training["masked_attention_fwd"]}),
         kernel_entry("masked_attention_bwd_dq", "masked_attention_bwd.cu",

@@ -15,8 +15,10 @@ card: at the synthesis path's bf16 shapes (T = 256..512, D = 48..64) reading
 q, k, v and writing out once takes a little longer at peak bandwidth than
 the 4·B·H·T²·D flops take at the bf16 tensor-core peak, so the design keeps
 the (T, T) logits out of device memory entirely.  bf16 runs the two
-products on the tensor cores (``mma.sync`` m16n8k16, fp32 accumulation);
-fp32 runs exact fp32 FMAs, with no TF32 or bf16 downcast anywhere.  The JAX
+products as ``wgmma`` on the tensor cores (fp32 accumulation), fed by TMA
+through an ``mbarrier`` ring; at grids smaller than the card (a B=1
+request) two warpgroups of a block split the key tiles.  fp32 runs exact
+fp32 FMAs, with no TF32 or bf16 downcast anywhere.  The JAX
 package sends only T >= 1024 to its kernel, a TPU measurement; the port
 sends every attention call on a CUDA tensor to its kernel, at any T.
 
@@ -33,7 +35,8 @@ contract, ``masked_attention_bwd_plain`` (from the forward's
 ``masked_attention_lse_plain``), which the tests and ``chip_smoke.py``
 hold it against.  The bf16 kernels read their operands by TMA, which needs
 16-byte row strides: a head dim that is not a multiple of 8 is zero-padded
-(``pad_head_dim``) and the gradients are sliced back.
+(``pad_head_dim``), the kernels get the true head dim's scale, and the
+output and gradients are sliced back.
 
 Dispatch.  A tensor on the CPU takes the plain version.  A CUDA tensor
 launches the kernel or raises; a build or launch failure is never hidden
@@ -59,15 +62,17 @@ masked_attention_bwd_dkv_count = LaunchCounter("masked_attention_bwd_dkv")
 masked_attention_bwd_dq_count = LaunchCounter("masked_attention_bwd_dq")
 
 
-def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None):
+def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None, scale=None):
     """Einsum + boolean key mask: the counterpart of ``attention.py:134-139``.
 
     Logits are fp32 (bf16 products are exact in fp32); the weights are cast
     to v's dtype before the second product, as in the JAX einsum path.
     ``weights_dropout``, a function of the weights, is the training-mode
     attention-prob dropout of the text encoder (``text_encoder.py:157-174``).
+    ``scale`` defaults to 1/√D of q's head dim.
     """
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     logits = logits.masked_fill(~(key_valid[:, None, None, :] > 0), float("-inf"))
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -76,11 +81,13 @@ def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None):
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
 
-def masked_attention_lse_plain(q, k, key_valid):
+def masked_attention_lse_plain(q, k, key_valid, scale=None):
     """The forward's fp32 log-sum-exp in log2 units, (B, H, T), as the K1
     kernel writes it: log2 Σ_valid exp2(q·kᵀ·scale·log2e); +inf for a row
-    whose batch row has no valid key."""
-    scale_log2 = LOG2E / math.sqrt(q.shape[-1])
+    whose batch row has no valid key.  ``scale`` defaults to 1/√D."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    scale_log2 = LOG2E * scale
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale_log2
     keep = key_valid[:, None, None, :] > 0
     lse = torch.logsumexp(s.masked_fill(~keep, float("-inf")) * math.log(2.0), dim=-1) / math.log(2.0)
@@ -137,27 +144,31 @@ def _check_cuda_inputs(q, k, v, key_valid):
     return (key_valid > 0).to(torch.uint8).contiguous()
 
 
-def _launch_fwd(q, k, v, valid_u8, with_lse: bool):
+def _kernel_operands(*tensors):
+    """The true head dim, its softmax scale, and the tensors as the kernels
+    take them: bf16 zero-padded to a head dim the TMA kernels can read."""
+    d = tensors[0].shape[-1]
+    ins = pad_head_dim(tensors) if tensors[0].dtype == torch.bfloat16 else tensors
+    return d, 1.0 / math.sqrt(d), ins
+
+
+def _launch_fwd(q, k, v, valid_u8, with_lse: bool, layout: int = 0):
+    """K1 on CUDA tensors: (out, lse), lse empty unless ``with_lse``.
+    ``layout`` (bf16): 0 by shape, 1 one warpgroup per block, 2 two
+    warpgroups splitting the keys."""
+    d, scale, (q, k, v) = _kernel_operands(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:3] if with_lse else (0,), dtype=torch.float32, device=q.device)
-    kernels().masked_attention_fwd(q, k, v, valid_u8, out, lse)
+    kernels().masked_attention_fwd(q, k, v, valid_u8, out, lse, scale, layout)
     masked_attention_fwd_count.add()
-    return out, lse
-
-
-def _bwd_operands(q, k, v, dout):
-    """The true head dim, its softmax scale, and the operands as the kernels
-    take them: bf16 zero-padded to a head dim the TMA kernels can read."""
-    d = q.shape[-1]
-    ins = pad_head_dim((q, k, v, dout)) if q.dtype == torch.bfloat16 else (q, k, v, dout)
-    return d, 1.0 / math.sqrt(d), ins
+    return out[..., :d], lse
 
 
 def masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8):
     """The dk, dv kernel's wrapper: (B, H, T, D) CUDA tensors in one dtype,
     the forward's (B, H, T) fp32 ``lse`` and ``delta = rowsum(dout·out)``,
     a (B, T) uint8 key mask.  Returns (dk, dv)."""
-    d, scale, (q, k, v, dout) = _bwd_operands(q, k, v, dout)
+    d, scale, (q, k, v, dout) = _kernel_operands(q, k, v, dout)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     kernels().masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8, dk, dv, scale)
@@ -167,7 +178,7 @@ def masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8):
 
 def masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8):
     """The dq kernel's wrapper; same inputs as ``masked_attention_bwd_dkv``."""
-    d, scale, (q, k, v, dout) = _bwd_operands(q, k, v, dout)
+    d, scale, (q, k, v, dout) = _kernel_operands(q, k, v, dout)
     dq = torch.empty_like(q)
     kernels().masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8, dq, scale)
     masked_attention_bwd_dq_count.add()

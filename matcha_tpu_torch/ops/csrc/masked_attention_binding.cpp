@@ -8,15 +8,16 @@
 #include <torch/extension.h>
 
 #include <array>
-#include <cmath>
 #include <initializer_list>
 #include <map>
 #include <string>
 
-bool masked_attention_fwd_launch(const void* q, const void* k, const void* v,
-                                 const uint8_t* key_valid, void* out, float* lse, int batch,
-                                 int n_heads, int seq, int dim, bool bf16,
-                                 float qk_scale_log2, cudaStream_t stream);
+const char* masked_attention_fwd_launch(const void* q, const void* k, const void* v,
+                                        const uint8_t* key_valid, void* out, float* lse,
+                                        int batch, int n_heads, int seq, int dim, bool bf16,
+                                        float qk_scale_log2, int layout, cudaStream_t stream);
+int masked_attention_fwd_layout(int batch, int n_heads, int seq);
+cudaError_t masked_attention_fwd_attributes(int layout, int dim, int* out);
 const char* masked_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                             const void* dout, const float* lse,
                                             const float* delta, const uint8_t* key_valid,
@@ -32,6 +33,7 @@ cudaError_t masked_attention_bwd_attributes(int kernel, int dim, int* out);
 long long mas_scratch_words(int batch, int tx, int ty);
 cudaError_t mas_launch(const float* value, const int* x_len, const int* y_len, int* idx,
                        uint32_t* scratch, int batch, int tx, int ty, cudaStream_t stream);
+cudaError_t mas_attributes(int tx, int ty, int* out);
 
 namespace {
 
@@ -73,10 +75,14 @@ void check_rows(const torch::Tensor& t, const torch::Tensor& q, const char* name
 }  // namespace
 
 // Writes out and, when lse has elements, the (B, H, T) fp32 log-sum-exp
-// the backward needs; an empty lse skips it.  Allocates nothing.
+// the backward needs; an empty lse skips it.  `scale`: the softmax scale of
+// the true head dim (bf16 takes D zero-padded to a multiple of 8).
+// `layout` (bf16): 0 by shape, 1 one warpgroup per block, 2 two warpgroups
+// splitting the keys.  Allocates nothing.
 void masked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
                           const torch::Tensor& v, const torch::Tensor& key_valid,
-                          const torch::Tensor& out, const torch::Tensor& lse) {
+                          const torch::Tensor& out, const torch::Tensor& lse, double scale,
+                          int64_t layout) {
   const auto [batch, n_heads, seq, dim] = check_heads(q, {&q, &k, &v, &out});
   check_mask(key_valid, q, batch, seq);
   const bool with_lse = lse.numel() > 0;
@@ -84,15 +90,13 @@ void masked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
   if (q.numel() == 0) return;
 
   const c10::cuda::CUDAGuard guard(q.device());
-  const float qk_scale_log2 =
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(dim)) * 1.4426950408889634);
-  const bool launched = masked_attention_fwd_launch(
+  const char* err = masked_attention_fwd_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr<uint8_t>(), out.data_ptr(),
       with_lse ? lse.data_ptr<float>() : nullptr, static_cast<int>(batch),
       static_cast<int>(n_heads), static_cast<int>(seq), static_cast<int>(dim),
-      q.scalar_type() == torch::kBFloat16, qk_scale_log2,
-      c10::cuda::getCurrentCUDAStream().stream());
-  TORCH_CHECK(launched, "no kernel instance for head dim ", dim);
+      q.scalar_type() == torch::kBFloat16, static_cast<float>(scale * 1.4426950408889634),
+      static_cast<int>(layout), c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == nullptr, "masked_attention_fwd: ", err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -145,6 +149,11 @@ void masked_attention_bwd_dq(const torch::Tensor& q, const torch::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+std::map<std::string, int64_t> attributes_map(const int* out) {
+  return {{"registers", out[0]}, {"static_smem_bytes", out[1]}, {"dynamic_smem_bytes", out[2]},
+          {"local_bytes", out[3]}, {"threads", out[4]}};
+}
+
 // cudaFuncGetAttributes of the bf16 backward kernel ("dq" or "dkv") that
 // serves head dim `dim`, on the current device.
 std::map<std::string, int64_t> masked_attention_bwd_attributes_binding(const std::string& kernel,
@@ -155,8 +164,36 @@ std::map<std::string, int64_t> masked_attention_bwd_attributes_binding(const std
   const cudaError_t err =
       masked_attention_bwd_attributes(kernel == "dq" ? 0 : 1, static_cast<int>(dim), out);
   TORCH_CHECK(err == cudaSuccess, "cudaFuncGetAttributes: ", cudaGetErrorString(err));
-  return {{"registers", out[0]}, {"static_smem_bytes", out[1]}, {"dynamic_smem_bytes", out[2]},
-          {"local_bytes", out[3]}, {"threads", out[4]}};
+  return attributes_map(out);
+}
+
+// the same for the bf16 forward kernel of `layout` (1 or 2)
+std::map<std::string, int64_t> masked_attention_fwd_attributes_binding(int64_t layout,
+                                                                       int64_t dim) {
+  TORCH_CHECK(layout == 1 || layout == 2, "layout must be 1 or 2");
+  TORCH_CHECK(dim >= 1 && dim <= 128, "head dim must be in [1, 128]");
+  int out[5];
+  const cudaError_t err =
+      masked_attention_fwd_attributes(static_cast<int>(layout), static_cast<int>(dim), out);
+  TORCH_CHECK(err == cudaSuccess, "cudaFuncGetAttributes: ", cudaGetErrorString(err));
+  return attributes_map(out);
+}
+
+int64_t masked_attention_fwd_layout_binding(int64_t batch, int64_t n_heads, int64_t seq) {
+  return masked_attention_fwd_layout(static_cast<int>(batch), static_cast<int>(n_heads),
+                                     static_cast<int>(seq));
+}
+
+// the same for the MAS kernel that serves (tx, ty); "warp_dp" is 1 for the
+// one-warp DP kernel, 0 for the block-wide kernel of Tx > 1024
+std::map<std::string, int64_t> mas_attributes_binding(int64_t tx, int64_t ty) {
+  TORCH_CHECK(tx >= 1 && ty >= 1 && tx <= (1 << 30) && ty <= (1 << 30), "bad (tx, ty)");
+  int out[6];
+  const cudaError_t err = mas_attributes(static_cast<int>(tx), static_cast<int>(ty), out);
+  TORCH_CHECK(err == cudaSuccess, "cudaFuncGetAttributes: ", cudaGetErrorString(err));
+  auto attrs = attributes_map(out);
+  attrs["warp_dp"] = out[5];
+  return attrs;
 }
 
 int64_t mas_scratch_words_binding(int64_t batch, int64_t tx, int64_t ty) {
@@ -203,7 +240,13 @@ void mas_indices(const torch::Tensor& value, const torch::Tensor& x_lengths,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("masked_attention_fwd", &masked_attention_fwd,
-        "masked self-attention forward (sm_90a), writes out (and lse) in place");
+        "masked self-attention forward (sm_90a), writes out (and lse) in place", py::arg("q"),
+        py::arg("k"), py::arg("v"), py::arg("key_valid"), py::arg("out"), py::arg("lse"),
+        py::arg("scale"), py::arg("layout") = 0);
+  m.def("masked_attention_fwd_layout", &masked_attention_fwd_layout_binding,
+        "the bf16 forward layout (1 or 2) chosen by shape");
+  m.def("masked_attention_fwd_attributes", &masked_attention_fwd_attributes_binding,
+        "registers, shared memory and local bytes of a bf16 forward kernel");
   m.def("masked_attention_bwd_dkv", &masked_attention_bwd_dkv,
         "masked self-attention backward, dk and dv (sm_90a), in place");
   m.def("masked_attention_bwd_dq", &masked_attention_bwd_dq,
@@ -212,6 +255,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "registers, shared memory and local bytes of a bf16 backward kernel");
   m.def("mas_scratch_words", &mas_scratch_words_binding,
         "int32 words of global scratch mas_indices needs");
+  m.def("mas_attributes", &mas_attributes_binding,
+        "registers, shared memory and local bytes of the MAS kernel for (tx, ty)");
   m.def("mas_indices", &mas_indices,
         "monotonic alignment search, forward DP + backtrack (sm_90a), writes idx in place");
 }

@@ -5,11 +5,14 @@ use, on the machine that runs them, with ``torch.utils.cpp_extension.load``
 for Hopper (``sm_90a``).  The build goes to ``ops/build/`` inside the
 package (listed in ``.gitignore``); importing this module builds nothing,
 so the CPU-only test suite imports every module of the port without a CUDA
-toolkit.
+toolkit.  ``load`` rebuilds when a listed source changes but not when a
+header they include does, so the extension's name carries a hash of every
+source and header it builds from: an edit to any of them builds anew.
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
 from pathlib import Path
 
@@ -20,10 +23,21 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 # PyTorch-header binding file compiles once
 SOURCES = ("masked_attention_binding.cpp", "masked_attention_fwd.cu",
            "masked_attention_bwd.cu", "mas.cu")
+HEADERS = ("hopper.cuh",)
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
 _build_lock = threading.Lock()
 _extension = None
+
+
+def extension_name() -> str:
+    """``matcha_tpu_torch_kernels_`` + 12 hex digits of the sources' and
+    headers' contents."""
+    digest = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        digest.update(name.encode())
+        digest.update((CSRC / name).read_bytes())
+    return "matcha_tpu_torch_kernels_" + digest.hexdigest()[:12]
 
 
 def kernels():
@@ -39,7 +53,7 @@ def kernels():
 
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             _extension = load(
-                name="matcha_tpu_torch_kernels",
+                name=extension_name(),
                 sources=[str(CSRC / s) for s in SOURCES],
                 build_directory=str(BUILD_DIR),
                 extra_cflags=["-O3", "-std=c++17"],

@@ -16,8 +16,13 @@ Lengths must lie in [1, Tx] and [0, Ty].
 Kernel note.  ``maximum_path_indices_kernel`` launches the CUDA C++ kernel
 in ``csrc/mas.cu``, which replaces both Pallas TPU kernels of
 ``matcha_tpu/ops/mas_pallas.py`` (the forward DP launched at :179, the
-backtrack at :189) with one launch: one block per batch row, the DP front
-double-buffered in shared memory, the decisions packed as bits.  Every
+backtrack at :189) with one launch: one block per batch row, in which one
+warp holds the whole DP front in registers (Tx <= 512, a run of
+consecutive tokens per lane; no block barrier per frame) while three
+loader warps copy the values into a ring of 16-frame tiles ahead of it;
+the decisions are packed as bits, and the backtrack jumps from one
+step to the next.  Longer texts take a block-wide kernel with one barrier
+per frame.  Every
 operation is an fp32 add or max in the scan's order, so the kernel's
 indices equal the plain version's exactly.
 

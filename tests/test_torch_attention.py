@@ -75,3 +75,30 @@ def test_bf16_plain_output_dtype():
     np.testing.assert_allclose(
         out.float().numpy(), ta.masked_self_attention_plain(q, k, v, valid).numpy(), atol=5e-2
     )
+
+
+@pytest.mark.parametrize("d", [3, 12, 36, 44])
+def test_zero_padded_head_dim_with_true_scale_matches_jax(d):
+    """What the bf16 kernel computes for D % 8 != 0: q, k, v zero-padded to a
+    multiple of 8 (``pad_head_dim``), the true head dim's scale, the output
+    sliced back; held here through the plain version against the JAX einsum
+    path at the unpadded head dim."""
+    q, k, v, valid = _inputs(5, d=d)
+    qp, kp, vp = ta.pad_head_dim(tuple(map(torch.from_numpy, (q, k, v))))
+    assert qp.shape[-1] % 8 == 0 and qp.shape[-1] - d < 8
+    ours = ta.masked_self_attention_plain(qp, kp, vp, torch.from_numpy(valid), scale=1.0 / math.sqrt(d))
+    assert (ours[..., d:] == 0).all()
+    ref = np.asarray(jax_attention(*map(jnp.asarray, (q, k, v, valid)), backend="einsum"))
+    np.testing.assert_allclose(ours[..., :d].numpy(), ref, atol=1e-5)
+    lse_padded = ta.masked_attention_lse_plain(qp, kp, torch.from_numpy(valid), scale=1.0 / math.sqrt(d))
+    lse = ta.masked_attention_lse_plain(*map(torch.from_numpy, (q, k, valid)))
+    np.testing.assert_allclose(lse_padded.numpy(), lse.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,d,padded", [(torch.bfloat16, 40, 40), (torch.bfloat16, 36, 40),
+                                            (torch.bfloat16, 5, 8), (torch.float32, 36, 36)])
+def test_kernel_operands_pad_only_bf16_head_dims_off_the_tma_multiple(dtype, d, padded):
+    x = torch.ones((1, 2, 3, d), dtype=dtype)
+    true_d, scale, ins = ta._kernel_operands(x, x, x)
+    assert true_d == d and scale == pytest.approx(1.0 / math.sqrt(d))
+    assert all(t.shape == (1, 2, 3, padded) and t.dtype == dtype for t in ins)

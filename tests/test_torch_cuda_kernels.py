@@ -8,7 +8,10 @@ conftest there:
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q -m cuda
 
 Tolerances: attention forward max abs error 1e-4 (fp32: summation order,
-exp2 against exp) and 2e-2 (bf16 output rounding); backward max |err| /
+exp2 against exp) and 2e-2 (bf16 output rounding), each bf16 layout of the
+forward on its own as well; the forward's log-sum-exp 1e-3 in log2 units
+(fp32 sums in another order), +inf and a NaN output (0 / 0, as the plain
+version) on a batch row with no valid key; backward max |err| /
 max |ref| of dq, dk, dv, the same two, both through autograd and for each
 backward kernel alone against ``masked_attention_bwd_plain`` fed the
 forward kernel's log-sum-exp; padded keys get dk = dv = 0 exactly; MAS
@@ -38,7 +41,8 @@ def _valid(b, t, gen):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 6, 256, 48), (16, 5, 512, 64), (2, 6, 4000, 48), (3, 5, 333, 64), (2, 2, 37, 8)])
+@pytest.mark.parametrize("shape", [(16, 6, 256, 48), (16, 5, 512, 64), (2, 6, 4000, 48), (3, 5, 333, 64), (2, 2, 37, 8),
+                                   (1, 5, 512, 64), (1, 6, 256, 48), (2, 3, 96, 36), (2, 4, 200, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(gen, shape, dtype):
     b, h, t, d = shape
@@ -47,7 +51,38 @@ def test_kernel_matches_plain_on_card(gen, shape, dtype):
     out = ta.masked_attention_fwd(q, k, v, valid)
     torch.cuda.synchronize()
     ref = ta.masked_self_attention_plain(q.float(), k.float(), v.float(), valid)
+    assert out.shape == q.shape and out.dtype == q.dtype
     assert (out.float() - ref).abs().max().item() <= TOL[dtype]
+    if dtype == "bfloat16":  # each layout on its own: one warpgroup, two splitting the keys
+        valid_u8 = valid.to(torch.uint8)
+        for layout in (1, 2):
+            got, _ = ta._launch_fwd(q, k, v, valid_u8, with_lse=False, layout=layout)
+            torch.cuda.synchronize()
+            assert (got.float() - ref).abs().max().item() <= TOL[dtype], layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(62, 5, 512, 64), (3, 5, 333, 64), (2, 6, 4000, 48), (1, 5, 256, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_lse_matches_plain_and_empty_rows_on_card(gen, shape, dtype):
+    """Ragged key lengths including 1, and batch row 1 with no valid key:
+    its output is NaN where the plain version's is, its lse +inf."""
+    b, h, t, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dtype)) for _ in range(3))
+    valid = _valid(b, t, gen)
+    if b > 1:
+        valid[1] = 0
+    for layout in ((1, 2) if dtype == "bfloat16" else (0,)):
+        out, lse = ta._launch_fwd(q, k, v, valid.to(torch.uint8), with_lse=True, layout=layout)
+        torch.cuda.synchronize()
+        ref_lse = ta.masked_attention_lse_plain(q, k, valid)
+        ref = ta.masked_self_attention_plain(q.float(), k.float(), v.float(), valid)
+        assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+        finite = torch.isfinite(ref_lse)
+        assert (lse[finite] - ref_lse[finite]).abs().max().item() <= 1e-3
+        assert torch.equal(torch.isnan(out), torch.isnan(ref))
+        keep = ~torch.isnan(ref)
+        assert (out.float()[keep] - ref[keep]).abs().max().item() <= TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -113,13 +148,21 @@ def test_padded_keys_get_exactly_zero_dk_dv(gen, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(62, 224, 1024), (29, 448, 2176), (3, 37, 333), (2, 1000, 4096)])
-def test_mas_kernel_equals_plain_on_card(gen, shape):
+@pytest.mark.parametrize("shape", [(62, 224, 1024), (29, 448, 2176), (3, 37, 333), (2, 1000, 4096),
+                                   (3, 512, 700), (3, 513, 700), (2, 512, 4096), (4, 33, 41)])
+@pytest.mark.parametrize("values", ["random", "ties"])
+def test_mas_kernel_equals_plain_on_card(gen, shape, values):
+    """Tx = 512 is the last shape of the one-warp DP kernel, 513 the first of
+    the block-wide one; (2, 512, 4096) keeps its decisions in global
+    scratch; Ty = 41 takes 4-byte copies (Ty % 4 != 0)."""
     b, t_x, t_y = shape
     v = torch.randn(shape, generator=gen, device="cuda")
+    if values == "ties":
+        v = torch.full(shape, -1.0, device="cuda")
     xl = torch.randint(1, t_x + 1, (b,), generator=gen, device="cuda")
     yl = torch.randint(1, t_y + 1, (b,), generator=gen, device="cuda")
     xl[0] = 1
+    xl[-1], yl[-1] = t_x, t_y
     got = mas.maximum_path_indices_kernel(v, xl, yl)
     torch.cuda.synchronize()
     assert torch.equal(got, mas.maximum_path_indices_plain(v, xl, yl))
