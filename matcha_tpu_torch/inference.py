@@ -100,6 +100,15 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return torch.device(device)
 
 
+def strict_fp32(device: torch.device) -> None:
+    """On the card, TF32 off for cuBLAS matmuls and cuDNN convolutions
+    alike: the model's fp32 products (see models/layers.py) must be true
+    fp32."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     """Several tensors → float32 numpy arrays in ONE device→host copy."""
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]).cpu().numpy()
@@ -177,11 +186,7 @@ class MatchaSynthesizer:
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # fp32 products in full fp32 (see models/layers.py): TF32 off for
-            # cuBLAS matmuls and cuDNN convolutions alike
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        strict_fp32(self.device)
         self.cfg = cfg
         params = _as_state_dict(params)
         # speaker-mixing blends run in host numpy

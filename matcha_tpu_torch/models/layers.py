@@ -36,6 +36,12 @@ def dropout(x, p: float, generator: torch.Generator | None):
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of norm statistics and fp32 islands under a compute
+    ``dtype``: fp32, or float64 for a float64 reference run."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 class Conv1d(nn.Conv1d):
     """Conv over the time axis of (B, T, C), computed in ``dtype``.
 

@@ -13,6 +13,9 @@ carry the reference torch names (``conv_layers``, ``attn_layers``,
 ``proj_m.0`` ...), so the state_dict is the reference layout.  Under bf16
 compute with ``fp32_residual`` the embedding / residual / norm stream stays
 fp32 and only conv and dense inputs are bf16, as in the JAX package.
+``dtype=torch.float64`` runs everything in float64, the fp32 islands and
+norm statistics included: the float64 reference that the StyleEncoder
+gradient checks hold fp32 runs against.
 
 Training mode.  Every ``forward`` takes ``gen``, a ``torch.Generator`` on the
 activations' device: with one, dropout runs where the JAX module has it
@@ -32,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from matcha_tpu_torch.models.config import DurationPredictorConfig, EncoderConfig
-from matcha_tpu_torch.models.layers import Conv1d, Linear, dropout
+from matcha_tpu_torch.models.layers import Conv1d, Linear, dropout, wide
 from matcha_tpu_torch.ops.attention import masked_self_attention, masked_self_attention_plain
 
 
@@ -50,10 +53,10 @@ class ChannelLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        x32 = x.float()
-        mean = x32.mean(dim=-1, keepdim=True)
-        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        xw = x.to(wide(x.dtype))
+        mean = xw.mean(dim=-1, keepdim=True)
+        var = (xw - mean).square().mean(dim=-1, keepdim=True)
+        y = (xw - mean) * torch.rsqrt(var + self.eps)
         return (y * self.gamma + self.beta).to(self.out_dtype)
 
 
@@ -220,7 +223,7 @@ class DurationPredictor(nn.Module):
         )
         # the log-duration head is an fp32 island (precision="highest" in
         # the JAX package): a true-fp32 matmul here, see models/layers.py
-        self.proj = Conv1d(fc, 1, 1, dtype=torch.float32)
+        self.proj = Conv1d(fc, 1, 1, dtype=wide(dtype))
 
     def forward(self, x, mask, spk_emb, gen=None):
         gamma, beta = self.spk_proj(spk_emb)[:, None, :].chunk(2, dim=-1)
@@ -229,7 +232,7 @@ class DurationPredictor(nn.Module):
         for conv, norm in zip(self.conv_layers, self.norm_layers):
             h = norm(torch.relu(conv(h * m)))
             h = dropout(h * gamma + beta, self.p_dropout, gen)
-        logw = self.proj(h.float() * mask[..., None])
+        logw = self.proj(h.to(wide(self.dtype)) * mask[..., None])
         return logw[..., 0] * mask
 
 
@@ -244,7 +247,7 @@ class TextEncoder(nn.Module):
         self.dtype = dtype
         self.spk_emb_dim = spk_emb_dim
         c = cfg.n_channels
-        self.f32_carry = cfg.fp32_residual and dtype != torch.float32
+        self.f32_carry = cfg.fp32_residual and wide(dtype) != dtype
         self.carry = torch.float32 if self.f32_carry else dtype
         self.emb = nn.Embedding(n_vocab, c)
         self.prenet = (
@@ -259,9 +262,9 @@ class TextEncoder(nn.Module):
         )
         # the mel head is an fp32 island: mu_x anchors the ODE
         self.proj_m = nn.Sequential(
-            Conv1d(c + spk_emb_dim, c, 1, dtype=torch.float32),
+            Conv1d(c + spk_emb_dim, c, 1, dtype=wide(dtype)),
             nn.SiLU(),
-            Conv1d(c, cfg.n_feats, 1, dtype=torch.float32),
+            Conv1d(c, cfg.n_feats, 1, dtype=wide(dtype)),
         )
         self.proj_w = DurationPredictor(
             c + spk_emb_dim, spk_emb_dim, dp_cfg, dtype=dtype, f32_carry=self.f32_carry
@@ -275,7 +278,7 @@ class TextEncoder(nn.Module):
         b, t, _ = x.shape
         spk = spk_enc[:, None, :].to(self.carry).expand(b, t, self.spk_emb_dim)
         x = self.encoder(torch.cat([x, spk], dim=-1), x_mask, gen)
-        mu_x = self.proj_m(x.float()) * x_mask[..., None]
+        mu_x = self.proj_m(x.to(wide(self.dtype))) * x_mask[..., None]
         # the duration branch must not shape the acoustic representation
         logw = self.proj_w(x.detach(), x_mask, spk_dur, gen)
         return mu_x, logw

@@ -65,7 +65,8 @@ masked_attention_bwd_dq_count = LaunchCounter("masked_attention_bwd_dq")
 def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None, scale=None):
     """Einsum + boolean key mask: the counterpart of ``attention.py:134-139``.
 
-    Logits are fp32 (bf16 products are exact in fp32); the weights are cast
+    Logits are fp32 (bf16 products are exact in fp32), float64 for float64
+    inputs; the weights are cast
     to v's dtype before the second product, as in the JAX einsum path.
     ``weights_dropout``, a function of the weights, is the training-mode
     attention-prob dropout of the text encoder (``text_encoder.py:157-174``).
@@ -73,7 +74,8 @@ def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None, scale=
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    wide = torch.promote_types(q.dtype, torch.float32)  # float64 in a float64 reference run
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(wide), k.to(wide)) * scale
     logits = logits.masked_fill(~(key_valid[:, None, None, :] > 0), float("-inf"))
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     if weights_dropout is not None:
@@ -156,11 +158,12 @@ def _launch_fwd(q, k, v, valid_u8, with_lse: bool, layout: int = 0):
     """K1 on CUDA tensors: (out, lse), lse empty unless ``with_lse``.
     ``layout`` (bf16): 0 by shape, 1 one warpgroup per block, 2 two
     warpgroups splitting the keys."""
+    signature = (tuple(q.shape), str(q.dtype).split(".")[-1], with_lse)
     d, scale, (q, k, v) = _kernel_operands(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:3] if with_lse else (0,), dtype=torch.float32, device=q.device)
     kernels().masked_attention_fwd(q, k, v, valid_u8, out, lse, scale, layout)
-    masked_attention_fwd_count.add()
+    masked_attention_fwd_count.add(signature)
     return out[..., :d], lse
 
 
@@ -168,20 +171,22 @@ def masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8):
     """The dk, dv kernel's wrapper: (B, H, T, D) CUDA tensors in one dtype,
     the forward's (B, H, T) fp32 ``lse`` and ``delta = rowsum(dout·out)``,
     a (B, T) uint8 key mask.  Returns (dk, dv)."""
+    signature = (tuple(q.shape), str(q.dtype).split(".")[-1])
     d, scale, (q, k, v, dout) = _kernel_operands(q, k, v, dout)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     kernels().masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8, dk, dv, scale)
-    masked_attention_bwd_dkv_count.add()
+    masked_attention_bwd_dkv_count.add(signature)
     return dk[..., :d], dv[..., :d]
 
 
 def masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8):
     """The dq kernel's wrapper; same inputs as ``masked_attention_bwd_dkv``."""
+    signature = (tuple(q.shape), str(q.dtype).split(".")[-1])
     d, scale, (q, k, v, dout) = _kernel_operands(q, k, v, dout)
     dq = torch.empty_like(q)
     kernels().masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8, dq, scale)
-    masked_attention_bwd_dq_count.add()
+    masked_attention_bwd_dq_count.add(signature)
     return dq[..., :d]
 
 

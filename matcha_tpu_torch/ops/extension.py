@@ -64,7 +64,10 @@ def kernels():
 
 
 class LaunchCounter:
-    """Launches of one kernel: its wrapper adds one per launch, nowhere else.
+    """Launches of one kernel: its wrapper adds one per launch, nowhere else,
+    with the launch's signature (shapes, dtype, options), so that a check
+    can hold the kernel against its plain version at every signature a
+    path launched it at.
 
     Thread-safe, since the serving batcher runs groups on several threads.
     """
@@ -72,16 +75,25 @@ class LaunchCounter:
     def __init__(self, name: str):
         self.name = name
         self._n = 0
+        self._signatures: set[tuple] = set()
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, signature: tuple) -> None:
         with self._lock:
             self._n += 1
+            self._signatures.add(signature)
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._signatures.clear()
 
     @property
     def launches(self) -> int:
         return self._n
+
+    @property
+    def signatures(self) -> list[tuple]:
+        """The distinct signatures launched since the last ``reset``, sorted."""
+        with self._lock:
+            return sorted(self._signatures)

@@ -126,7 +126,7 @@ def maximum_path_indices_kernel(value, x_lengths, y_lengths):
     scratch = torch.empty((words,), dtype=torch.int32, device=value.device)
     ext.mas_indices(value, x_lengths.to(torch.int32).contiguous(),
                     y_lengths.to(torch.int32).contiguous(), idx, scratch)
-    mas_count.add()
+    mas_count.add((b, t_x, t_y))
     return idx
 
 

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from matcha_tpu_torch.inference import resolve_device
+from matcha_tpu_torch.inference import resolve_device, strict_fp32
 from matcha_tpu_torch.models.config import MatchaConfig
 from matcha_tpu_torch.models.matcha import MatchaTTS, init_params
 from matcha_tpu_torch.train.optim import AdamW, OptimizerConfig, OptState, global_norm
@@ -62,11 +62,7 @@ class TrainStep:
     def __init__(self, cfg: MatchaConfig, opt_cfg: OptimizerConfig, device=None,
                  trainable: dict[str, bool] | None = None):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # the log-prior product and the fp32 islands must be true fp32:
-            # TF32 off for cuBLAS matmuls and cuDNN convolutions alike
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        strict_fp32(self.device)  # the log-prior product and the fp32 islands
         self.cfg = cfg
         self.model = MatchaTTS(cfg).to(self.device)
         self.opt = AdamW(opt_cfg, decay_mask(cfg), trainable)

@@ -25,10 +25,15 @@ from pathlib import Path
 
 import torch
 
+from matcha_tpu_torch.checkpoint import load_checkpoint
 from matcha_tpu_torch.data.datamodule import TextMelDataModule
 from matcha_tpu_torch.data.dataset import TextMelDataset
 from matcha_tpu_torch.models.config import MatchaConfig
-from matcha_tpu_torch.train.checkpoint import load_train_state, save_checkpoint
+from matcha_tpu_torch.train.checkpoint import (
+    expand_speaker_tables,
+    save_checkpoint,
+    train_state_from_tree,
+)
 from matcha_tpu_torch.train.optim import OptimizerConfig
 from matcha_tpu_torch.train.step import Batch, TrainState, TrainStep, step_seed
 
@@ -108,23 +113,49 @@ class Trainer:
         self.out_dir = Path(trainer_cfg.output_dir)
         self.logger = MetricLogger(self.out_dir)
 
+    def set_datasets(self, train_dataset: TextMelDataset, valid_dataset: TextMelDataset | None = None):
+        """Swap datasets (e.g. speaker-filtered) and rebuild the samplers."""
+        self.dm = self.dm.replace_datasets(train_dataset, valid_dataset)
+
+    @property
+    def train_ds(self) -> TextMelDataset:
+        return self.dm.train_ds
+
+    @property
+    def valid_ds(self) -> TextMelDataset | None:
+        return self.dm.valid_ds
+
     def init_state(self, resume_from: str | None = None) -> TrainState:
         """Fresh (random weights from the run's seed) or resumed state.
 
         Learning rate and weight decay always come from this run's config.
-        A fine-tune (``trainable_mask`` set) loads the parameters only and
-        starts its optimizer fresh, as the JAX trainer does.
+        A full resume from a checkpoint with fewer speakers than the config
+        zero-extends both speaker tables and their Adam moment rows (the JAX
+        trainer's rule); one with more raises.  A fine-tune
+        (``trainable_mask`` set) loads the parameters only and starts its
+        optimizer fresh, as the JAX trainer does, and needs the
+        checkpoint's speaker count.
         """
         if not resume_from:
             return self.steps.init_state(generator=torch.Generator().manual_seed(self.cfg.seed))
         fine_tune = self.trainable_mask is not None
-        params, opt_state, step, _, ckpt_cfg = load_train_state(
-            resume_from, self.device, with_optimizer=not fine_tune)
-        if ckpt_cfg.n_spks != self.model_cfg.n_spks:
-            raise NotImplementedError(
-                f"checkpoint has {ckpt_cfg.n_spks} speakers, config {self.model_cfg.n_spks}: "
-                "speaker-table expansion is not ported yet"
+        tree, ckpt_cfg = load_checkpoint(resume_from)
+        want = self.model_cfg.n_spks
+        if fine_tune and ckpt_cfg.n_spks != want:
+            raise ValueError(
+                f"checkpoint has {ckpt_cfg.n_spks} speakers but the config asks for {want}: "
+                f"a fine-tune needs the checkpoint's count (override data.n_spks={ckpt_cfg.n_spks})"
             )
+        if ckpt_cfg.n_spks > want:
+            raise ValueError(
+                f"checkpoint has {ckpt_cfg.n_spks} speakers but config asks for {want}; "
+                "shrinking is not supported"
+            )
+        if ckpt_cfg.n_spks < want:
+            print(f"expanded speaker tables {ckpt_cfg.n_spks} → {want} on resume")
+            tree, ckpt_cfg = expand_speaker_tables(tree, ckpt_cfg, want)
+        params, opt_state, step, _ = train_state_from_tree(
+            tree, ckpt_cfg, self.device, with_optimizer=not fine_tune)
         if fine_tune:
             return TrainState(params, self.steps.opt.init(params), 0)
         return TrainState(params, opt_state, step)

@@ -12,11 +12,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from matcha_tpu_torch.audio.mel import hann_window
 from matcha_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
 from matcha_tpu_torch.models.matcha import compute_dtype, random_state_dict
 
@@ -32,12 +32,6 @@ class VocosConfig:
     sample_rate: int = 24000
     # activation dtype of the ConvNeXt backbone; the ISTFT head is fp32
     compute_dtype: str = "float32"
-
-
-def hann_window(win_length: int) -> np.ndarray:
-    """Periodic Hann window (matches torch.hann_window(periodic=True))."""
-    n = np.arange(win_length, dtype=np.float64)
-    return (0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))).astype(np.float32)
 
 
 class ConvNeXtBlock(nn.Module):

@@ -18,7 +18,10 @@ layout rules (and importing neither):
 Each mapping is one row of a table built from the config; a flax leaf that
 no row consumes, or a row whose leaf is missing, raises.  ``params_to_jax``
 runs the same table backwards (the trainer writes its checkpoints in the
-flax layout, and the tests hold gradients against ``jax.grad``), and
+flax layout, and the tests hold gradients against ``jax.grad``), as do
+``vocos_params_to_jax`` (the Vocos pickle the tools read) and
+``style_params_to_jax`` (a ``style_params.pkl``, read back by
+``style_params_from_jax``), and
 ``decay_mask`` reads weight decay off the layout kind: the rows that are
 flax ``kernel``s decay, the ``copy`` rows (embeddings, norm scales and
 biases, biases, SnakeBeta alpha/beta) do not.
@@ -150,6 +153,16 @@ def matcha_param_table(cfg: MatchaConfig) -> list[tuple[str, str, str]]:
     return t.rows
 
 
+def style_param_table(n_layers: int = 4) -> list[tuple[str, str, str]]:
+    """(torch name, flax path, layout kind) for every StyleEncoder parameter."""
+    t = _Table()
+    for i in range(n_layers):
+        t.layer(f"conv{i}", f"conv{i}", "conv")
+    t.layer("head_enc", "head_enc", "dense")
+    t.layer("head_dur", "head_dur", "dense")
+    return t.rows
+
+
 def vocos_param_table(cfg: VocosConfig) -> list[tuple[str, str, str]]:
     """(torch name, flax path, layout kind) for every Vocos parameter."""
     t = _Table()
@@ -219,9 +232,13 @@ def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
     return tree
 
 
-def params_to_jax(state: Mapping[str, torch.Tensor], cfg: MatchaConfig) -> dict:
-    """Port state_dict (any device) → MatchaTTS flax param tree (fp32 numpy)."""
-    rows = matcha_param_table(cfg)
+def style_params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]:
+    """StyleEncoder flax param tree (a ``style_params.pkl``) → port state_dict."""
+    n_layers = sum(1 for k in flax_params if k.startswith("conv"))
+    return _bridge(flax_params, style_param_table(n_layers))
+
+
+def _unbridge(state: Mapping[str, torch.Tensor], rows) -> dict:
     names = {r[0] for r in rows}
     if set(state) != names:
         missing, extra = sorted(names - set(state)), sorted(set(state) - names)
@@ -230,6 +247,24 @@ def params_to_jax(state: Mapping[str, torch.Tensor], cfg: MatchaConfig) -> dict:
         flax_path: np.ascontiguousarray(_TO_FLAX[kind](state[name].detach().float().cpu().numpy()))
         for name, flax_path, kind in rows
     })
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor], cfg: MatchaConfig) -> dict:
+    """Port state_dict (any device) → MatchaTTS flax param tree (fp32 numpy)."""
+    return _unbridge(state, matcha_param_table(cfg))
+
+
+def vocos_params_to_jax(state: Mapping[str, torch.Tensor], cfg: VocosConfig) -> dict:
+    """Port Vocos state_dict → the flax param tree ``tools/convert_vocos.py``
+    pickles (fp32 numpy)."""
+    return _unbridge(state, vocos_param_table(cfg))
+
+
+def style_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
+    """Port StyleEncoder state_dict → the flax tree of a ``style_params.pkl``
+    (conv kernels (k, in, out), dense kernels (in, out))."""
+    n_layers = sum(1 for k in state if k.startswith("conv") and k.endswith(".weight"))
+    return _unbridge(state, style_param_table(n_layers))
 
 
 def decay_mask(cfg: MatchaConfig) -> dict[str, bool]:
