@@ -59,11 +59,25 @@ JSON line:
  17. cli_mcd  the synthesis CLI for speakers 0 and 16, ``compute_mcd``,
               ``vocoder.selftest`` and ``mcd_validate``: finite MCDs (random
               weights: a check of the tools, not of quality)
+ 18. checkpoint_crossing  a Trainer's checkpoint after one step holds the
+              JAX trainer's key paths (the list the CPU tests pin); reloaded,
+              it takes the next step as the uninterrupted state does
+ 19. dp_train  data-parallel Trainers over the 62 utterances of bucket 512:
+              world 1 over NCCL against one process (3 steps), and at
+              dropout 0 two spawned ranks over gloo on this card (31 + 31
+              rows) against world 1; step times, peak memory and launches
+              per rank
+ 20. seeded_noise  two equal B=1 fused requests give equal audio; bucket
+              noise is a prefix of the largest bucket's row; the seed-42 row
+              against the JAX package's values
+ 21. fanout   the synthesizer fanned out over two replicas on this card
+              against the single one: B=16 fused, a padded 3-request batch,
+              one request; wall times
 
 The launch counters are set to 0 just before each main path (phases 4-5,
-synthesis; phase 8, training; each of phases 13-17) and read just after:
-the kernels line reports those launches, by path.  The last line is
-``{"ok": true, "device": {...}}``.
+synthesis; phase 8, training; each of phases 13-17, 19 and 21) and read
+just after: the kernels line reports those launches, by path.  The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -288,7 +302,7 @@ def kernels_ext():
     return kernels()
 
 
-def production_synthesizer(compute_dtype: str, attention_backend: str = "auto", seed: int = 0):
+def production_synthesizer(compute_dtype: str, attention_backend: str = "auto", seed: int = 0, **kwargs):
     """Full-width MatchaConfig + VocosConfig with random weights from a seeded
     generator.  The duration head is set to a constant 4 fine frames per
     token (log(2 + 4)): random log-durations collapse to the 1-frame floor,
@@ -307,7 +321,7 @@ def production_synthesizer(compute_dtype: str, attention_backend: str = "auto", 
     params = init_params(cfg, gen)
     params["encoder.proj_w.proj.weight"].zero_()
     params["encoder.proj_w.proj.bias"].fill_(math.log(6.0))
-    return MatchaSynthesizer(cfg, params, init_vocos_params(vcfg, gen), vcfg)
+    return MatchaSynthesizer(cfg, params, init_vocos_params(vcfg, gen), vcfg, **kwargs)
 
 
 def ids_of(n: int, seed: int) -> list[int]:
@@ -818,10 +832,13 @@ def request_launches(cfg) -> int:
 
 def step_launches(cfg) -> dict:
     """Launches of one training step: K1 and both K1b kernels once per
-    decoder transformer block (the encoder's attention takes the plain
-    path under dropout), MAS once."""
+    decoder transformer block, and once per encoder layer when the encoder
+    has no dropout (with dropout its attention takes the plain path); MAS
+    once."""
     dec = cfg.decoder
     n_attn = dec.n_blocks * (2 * len(dec.channels) + dec.num_mid_blocks)
+    if cfg.encoder.p_dropout == 0.0:
+        n_attn += cfg.encoder.n_layers
     return {"masked_attention_fwd": n_attn, "masked_attention_bwd_dq": n_attn,
             "masked_attention_bwd_dkv": n_attn, "mas": 1}
 
@@ -918,15 +935,17 @@ def phase_train(tmp: str) -> dict:
     return out
 
 
-def fixed_batch(tmp: str, cfg, b: int):
-    """``b`` utterances of the 512 bucket, collated, on the card."""
+def fixed_batch(tmp: str, cfg, b: int, dev: str = "cuda", offset: int = 0):
+    """``b`` of the 62 utterances of the 512 bucket, from the ``offset``-th
+    on (cyclically), collated, on the card."""
     from matcha_tpu_torch.data.collate import collate
     from matcha_tpu_torch.data.dataset import TextMelDataset
     from matcha_tpu_torch.data.sampler import BucketPlan
 
     ds = TextMelDataset(os.path.join(tmp, "train.csv"), os.path.join(tmp, "mels"), cfg.n_feats)
-    return collate(ds, BucketPlan(mel_len=512, batch_size=b, indices=list(range(b)), n_real=b),
-                   text_bucket=32).to("cuda")
+    indices = [(offset + i) % 62 for i in range(b)]
+    return collate(ds, BucketPlan(mel_len=512, batch_size=b, indices=indices, n_real=b),
+                   text_bucket=32).to(dev)
 
 
 def fixed_t_noise(batch, seed: int = 5):
@@ -1549,6 +1568,332 @@ def phase_cli_mcd(tmp: str, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# seeded noise, checkpoints across frameworks, data-parallel training and the
+# serving fan-out
+# ---------------------------------------------------------------------------
+
+# the JAX package's seeded row at seed 42, (2048, 100): first four values and
+# float64 sum (tests/test_torch_seeded_noise.py pins them from JAX)
+JAX_ROW42_HEAD = (-0.02830461598932743, 0.4671318531036377, 0.2957029640674591, 0.15354591608047485)
+JAX_ROW42_SUM = -605.9497001221935
+PINNED_KEYS = os.path.join(ROOT, "tests", "fixtures", "jax_trainer_opt_state_keys.json")
+DP_OPT = {"eps": 1e-3}  # Adam eps of the parity runs, as the CPU tests hold one step
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_seeded_noise(synth) -> dict:
+    """Seeded synthesis: the same request twice gives the same audio; the
+    noise row of a bucket is the first rows of the largest bucket's; the
+    seed-42 row against the JAX package's values."""
+    import numpy as np
+
+    from matcha_tpu_torch.models.flow_matching import seeded_synthesis_noise
+
+    ids = ids_of(200, 1)
+    a = synth.synthesise_ids(ids, scale_correction=1.0, fused=True)
+    b = synth.synthesise_ids(ids, scale_correction=1.0, fused=True)
+    check(a.wav.shape == b.wav.shape and np.array_equal(a.wav, b.wav), "two equal requests gave other audio")
+    rep = synth.replicas[0]
+    check(torch.equal(rep.noise(1, 512)[0], rep.noise_row[:512]), "bucket 512's noise is not a prefix")
+    check(torch.equal(rep.noise_row[:512].cpu(), seeded_synthesis_noise(512, synth.cfg.n_feats)),
+          "the largest bucket's row does not start with the 512 row")
+    row = seeded_synthesis_noise(2048, 100, 42).numpy()
+    head, total = row[0, :4].tolist(), float(row.astype(np.float64).sum())
+    head_err = max(abs(x - y) for x, y in zip(head, JAX_ROW42_HEAD))
+    out = {"phase": "seeded_noise", "samples": len(a.wav), "audio_equal": True,
+           "row42_head": head, "row42_sum_fp64": total, "jax_row42_head": list(JAX_ROW42_HEAD),
+           "jax_row42_sum_fp64": JAX_ROW42_SUM, "head_max_abs_err": head_err,
+           "sum_abs_err": abs(total - JAX_ROW42_SUM)}
+    emit(out)
+    check(head_err <= 1e-6 and abs(total - JAX_ROW42_SUM) <= 1e-3, "the seed-42 row is not the JAX package's")
+    return out
+
+
+def phase_checkpoint_crossing(tmp: str, dev: str = "cuda") -> dict:
+    """A Trainer's checkpoint after one step holds the JAX trainer's key
+    paths (the list tests/test_torch_checkpoint_crossing.py pins); reloaded,
+    it takes the next step as the uninterrupted state does."""
+    import numpy as np
+
+    from matcha_tpu_torch.data.dataset import TextMelDataset
+    from matcha_tpu_torch.train.optim import OptimizerConfig
+    from matcha_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = bf16_train_config()
+    tcfg = TrainerConfig(output_dir=os.path.join(tmp, "crossing"), seed=1234, use_mesh=False)
+    trainer = Trainer(cfg, OptimizerConfig(**DP_OPT), tcfg,
+                      TextMelDataset(os.path.join(tmp, "train.csv"), os.path.join(tmp, "mels")), device=dev)
+    try:
+        batches = [fixed_batch(tmp, cfg, 62, dev), fixed_batch(tmp, cfg, 62, dev, offset=1)]
+        state = trainer.init_state()
+        state, _ = trainer.train_step(state, batches[0], 1234)
+        trainer.save(state, 0)
+        path = os.path.join(tmp, "crossing", "checkpoints", "epoch_00000")
+        with np.load(os.path.join(path, "state.npz")) as data:
+            opt_keys = sorted(k for k in data.files if k.startswith("['opt_state']"))
+        with open(PINNED_KEYS) as f:
+            pinned = json.load(f)["keys"]
+        resumed = trainer.init_state(resume_from=path)
+        same = (resumed.step == state.step and int(resumed.opt_state.count) == int(state.opt_state.count)
+                and all(torch.equal(resumed.params[n], state.params[n]) for n in state.params)
+                and all(torch.equal(getattr(resumed.opt_state, f)[n], getattr(state.opt_state, f)[n])
+                        for f in ("mu", "nu") for n in state.params))
+        state, m_run = trainer.train_step(state, batches[1], 1234)
+        resumed, m_res = trainer.train_step(resumed, batches[1], 1234)
+        loss_err = abs(float(m_res["loss"]) - float(m_run["loss"])) / abs(float(m_run["loss"]))
+        param_err = max(float((resumed.params[n] - state.params[n]).detach().abs().max()) for n in state.params)
+    finally:
+        trainer.close()
+    out = {"phase": "checkpoint_crossing", "opt_state_keys": len(opt_keys), "pinned_keys": len(pinned),
+           "keys_equal_pinned": opt_keys == pinned, "reloaded_bit_equal": same,
+           "next_step_loss_rel_err": loss_err, "loss_tol": 1e-5,
+           "next_step_param_max_abs_err": param_err, "param_tol": 1e-5}
+    emit(out)
+    check(opt_keys == pinned, f"{len(set(opt_keys) ^ set(pinned))} opt_state keys differ from the JAX trainer's")
+    check(same, "the reloaded state is not the saved one")
+    check(loss_err <= 1e-5 and param_err <= 1e-5, "the resumed step differs from the uninterrupted one")
+    return out
+
+
+def short_corpus(tmp: str) -> str:
+    """The training corpus's 62 utterances of bucket 512 (B=62): one batch
+    an epoch, which splits 31 + 31 over two ranks."""
+    with open(os.path.join(tmp, "train.csv")) as f:
+        rows = f.read().splitlines()[:62]
+    path = os.path.join(tmp, "short.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(rows))
+    return path
+
+
+def no_dropout(cfg):
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, p_dropout=0.0),
+        duration_predictor=dataclasses.replace(cfg.duration_predictor, p_dropout=0.0),
+        decoder=dataclasses.replace(cfg.decoder, dropout=0.0))
+
+
+def dp_run(tmp: str, filelist: str, name: str, cfg, dev, use_mesh: bool, steps: int = 3) -> dict:
+    """A Trainer over ``filelist`` for ``steps`` steps (data-parallel when a
+    process group runs and ``use_mesh``): per-step losses, wall times and
+    launches, peak memory, launch signatures, the final parameters on the
+    host."""
+    from matcha_tpu_torch.data.dataset import TextMelDataset
+    from matcha_tpu_torch.train.optim import OptimizerConfig
+    from matcha_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    counters = train_counters()
+    tcfg = TrainerConfig(output_dir=os.path.join(tmp, name), max_epochs=steps, log_every_n_steps=1,
+                         checkpoint_every_n_epochs=100, seed=1234, use_mesh=use_mesh)
+    trainer = Trainer(cfg, OptimizerConfig(**DP_OPT), tcfg,
+                      TextMelDataset(filelist, os.path.join(tmp, "mels")),
+                      max_frames_per_batch=32000, len_bucket=32, device=dev)
+    steps_out = []
+    real_step = trainer.train_step
+
+    def timed_step(state, batch, seed):
+        sync(dev)
+        before = {n: c.launches for n, c in counters.items()}
+        t0 = time.perf_counter()
+        state, metrics = real_step(state, batch, seed)
+        sync(dev)
+        steps_out.append({"seconds": time.perf_counter() - t0, "rows": batch.y.shape[0],
+                          "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                          "launches": {n: c.launches - before[n] for n, c in counters.items()}})
+        return state, metrics
+
+    trainer.train_step = timed_step
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    try:
+        state = trainer.fit(max_steps=steps)
+        world, rank = trainer.world, trainer.rank
+    finally:
+        trainer.close()
+    return {"world": world, "rank": rank, "steps": steps_out,
+            "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                if torch.device(dev).type == "cuda" else None),
+            "launches": {n: c.launches for n, c in counters.items()},
+            "signatures": {n: c.signatures for n, c in counters.items()},
+            "params": {n: p.detach().cpu() for n, p in state.params.items()}}
+
+
+def dp_worker(rank: int, world: int, store: str, tmp: str, filelist: str, cfg, dev: str) -> None:
+    """One rank of the two-rank run: gloo, both ranks on the same card."""
+    sys.path.insert(0, ROOT)
+    from matcha_tpu_torch.parallel import mesh
+
+    mesh.init_data_parallel(dev, backend="gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        res = dp_run(tmp, filelist, "dp_w2", cfg, dev, use_mesh=True)
+    finally:
+        mesh.destroy()
+    torch.save(res, os.path.join(tmp, f"dp_rank{rank}.pt"))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def max_param_diff(a: dict, b: dict) -> float:
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def phase_dp_train(tmp: str, dev: str = "cuda") -> dict:
+    """Data-parallel training through the Trainer: world 1 over NCCL against
+    one process; at dropout 0, world 2 over gloo (both ranks on this card,
+    31 + 31 rows) against world 1."""
+    import torch.multiprocessing as mp
+
+    from matcha_tpu_torch.parallel import mesh
+
+    cfg = bf16_train_config()
+    filelist = short_corpus(tmp)
+    single = dp_run(tmp, filelist, "dp_single", cfg, dev, use_mesh=False)
+    mesh.init_data_parallel(dev, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    try:
+        check(mesh.world() == 1 and (torch.device(dev).type != "cuda" or
+                                     torch.distributed.get_backend() == "nccl"), "world 1 is not NCCL")
+        w1 = dp_run(tmp, filelist, "dp_w1", cfg, dev, use_mesh=True)
+        w1_nodrop = dp_run(tmp, filelist, "dp_w1_nodrop", no_dropout(cfg), dev, use_mesh=True)
+    finally:
+        mesh.destroy()
+    store = os.path.join(tmp, "dp_store")
+    t0 = time.perf_counter()
+    mp.start_processes(dp_worker, args=(2, store, tmp, filelist, no_dropout(cfg), dev), nprocs=2, join=True,
+                       start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"dp_rank{r}.pt")) for r in range(2)]
+    for run in (w1, w1_nodrop, *ranks):  # every run's launch signatures join the path checks
+        for n, sigs in run["signatures"].items():
+            LAUNCHED.setdefault(n, set()).update(sigs)
+
+    def compare(run, ref) -> dict:
+        pairs = [(s["loss"], r["loss"]) for s, r in zip(run["steps"], ref["steps"])]
+        return {"first_loss_rel_err": abs(pairs[0][0] - pairs[0][1]) / abs(pairs[0][1]),
+                "loss_rel_err": max(abs(x - y) / abs(y) for x, y in pairs),
+                "param_max_abs_err": max_param_diff(run["params"], ref["params"])}
+
+    w1_vs_single = compare(w1, single)
+    w2_vs_w1 = compare(ranks[0], w1_nodrop)
+    ranks_equal = all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in ranks[0]["params"])
+
+    def summary(run):
+        return {"world": run["world"], "rank": run["rank"], "rows_per_step": [s["rows"] for s in run["steps"]],
+                "losses": [s["loss"] for s in run["steps"]], "step_s": [s["seconds"] for s in run["steps"]],
+                "peak_memory_gib": run["peak_memory_gib"], "launches": run["launches"],
+                "launches_per_step": run["steps"][-1]["launches"]}
+
+    out = {"phase": "dp_train", "compute_dtype": cfg.compute_dtype, "adam_eps": DP_OPT["eps"],
+           "single": summary(single), "world1_nccl": summary(w1), "world1_nccl_dropout0": summary(w1_nodrop),
+           "world2_gloo_dropout0": [summary(r) for r in ranks], "world2_spawn_s": spawn_s,
+           "world1_vs_single": w1_vs_single, "world2_vs_world1": w2_vs_w1,
+           "world2_ranks_bit_identical": ranks_equal, "first_loss_tol": 1e-5, "loss_tol": 1e-2,
+           "param_tol": 1e-5}
+    emit(out)
+    for run, run_cfg in ((w1, cfg), (w1_nodrop, no_dropout(cfg)), *((r, no_dropout(cfg)) for r in ranks)):
+        want = step_launches(run_cfg)
+        check(all(s["launches"] == want for s in run["steps"]), f"a DP step launched other than {want}")
+    check([s["rows"] for s in ranks[0]["steps"]] == [31] * 3, "world 2 did not split 62 rows 31 + 31")
+    check(ranks_equal, "the two ranks' parameters differ")
+    # the first step starts from equal weights; later ones carry the card's
+    # run-to-run noise: the backward's atomic sums move parameters by ~1e-6,
+    # enough to move a weight across a bf16 rounding step, so their losses
+    # are held to 1e-2 (up to 6.6e-4 on an H100) and the parameters to 1e-5
+    for name, err in (("world 1 vs one process", w1_vs_single), ("world 2 vs world 1", w2_vs_w1)):
+        check(err["first_loss_rel_err"] <= 1e-5 and err["loss_rel_err"] <= 1e-2
+              and err["param_max_abs_err"] <= 1e-5, f"{name}: {err}")
+    out["launches"] = w1["launches"]
+    return out
+
+
+def phase_fanout(synth, counters, dev: str = "cuda") -> dict:
+    """The serving fan-out over two replicas on this card against the
+    single-device synthesizer: a B=16 fused batch (8 rows a replica), a
+    3-request batch (padded to 4: 2 rows a replica, one of them a 1-token
+    pad row) and one request (padded to one row a replica).  Each replica's
+    rows must equal, bit for bit, the single synthesizer's on the same block
+    of rows; against the single synthesizer's whole-batch call they differ
+    by bf16 rounding, which depends on the batch's shape (printed, with the
+    same difference between two single-synthesizer calls of 16 and 8 rows).
+
+    The single synthesizer's calls all run first; the counts are set to 0
+    just before the fan-out's calls and read just after them, and every
+    call must launch K1 ``request_launches`` times on each replica."""
+    import numpy as np
+
+    fan = production_synthesizer("bfloat16", mesh=[dev, dev])
+    lists = [ids_of(180 + 4 * i, 100 + i) for i in range(16)]
+    mixes = [[(15, 1.0)]] * 16  # voice 15 carries no scale correction, as a pad row
+    three, ids = lists[:3], ids_of(200, 1)
+
+    def err(a, b):
+        check(len(a) == len(b) and all(x.wav.shape == y.wav.shape for x, y in zip(a, b)), "row shapes differ")
+        return max(float(np.abs(x.wav - y.wav).max()) for x, y in zip(a, b))
+
+    def timed_b16(s, into):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = s.synthesise_batch(lists, voice_mixes=mixes, fused=True)
+        into.append(time.perf_counter() - t0)
+        return out
+
+    # the single synthesizer: the references, off the counts
+    times = {"single_b16_s": [], "fanout_b16_s": []}
+    synth.synthesise_batch(lists, voice_mixes=mixes, fused=True)  # first B=16 call
+    for _ in range(3):
+        single_b16 = timed_b16(synth, times["single_b16_s"])
+    halves = (synth.synthesise_batch(lists[:8], voice_mixes=mixes[:8], fused=True)
+              + synth.synthesise_batch(lists[8:], voice_mixes=mixes[8:], fused=True))
+    blocks_b3 = (synth.synthesise_batch(three[:2], voice_mixes=mixes[:2], fused=True)
+                 + synth.synthesise_batch([three[2], [0]], voice_mixes=mixes[:2], fused=True)[:1])
+    single_b3 = synth.synthesise_batch(three, voice_mixes=mixes[:3], fused=True)
+    single_b1 = synth.synthesise_ids(ids, scale_correction=1.0, fused=True)
+
+    # the fan-out path alone between the reset and the read
+    for c in counters.values():
+        c.reset()
+    fan.synthesise_batch(lists, voice_mixes=mixes, fused=True)  # first call: allocator, cuDNN
+    for _ in range(3):
+        fan_b16 = timed_b16(fan, times["fanout_b16_s"])
+    fan_b3 = fan.synthesise_batch(three, voice_mixes=mixes[:3], fused=True)
+    fan_b1 = fan.synthesise_ids(ids, scale_correction=1.0, fused=True)
+    launches = read_counts(counters)
+    calls = 6
+    want = {n: 0 for n in launches}
+    want["masked_attention_fwd"] = calls * len(fan.replicas) * request_launches(fan.cfg)
+
+    per_block = {"b16_fused": err(fan_b16, halves), "b3_padded": err(fan_b3, blocks_b3),
+                 "b1_request": err([fan_b1], [single_b1])}
+    whole_batch = {"b16_fused": err(fan_b16, single_b16), "b3_padded": err(fan_b3, single_b3),
+                   "single_b16_vs_single_halves": err(single_b16, halves)}
+    out = {"phase": "fanout", "devices": [str(d) for d in fan.mesh],
+           "max_abs_err_vs_single_on_each_block": per_block, "tol": 0.0,
+           "max_abs_err_vs_single_whole_batch_bf16": whole_batch,
+           "b16_fused_s_median": {k: statistics.median(v) for k, v in times.items()}, "b16_fused_s": times,
+           "calls": calls, "launches": launches, "expected_launches": want,
+           "k1_launches_per_replica_per_call": request_launches(fan.cfg)}
+    emit(out)
+    check(launches == want, f"the fan-out launched {launches}, expected {want}")
+    check(max(per_block.values()) == 0.0, f"fan-out rows differ from the single synthesizer's: {per_block}")
+    del fan
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_path_signatures() -> dict:
     """Every kernel against its plain version at every signature a main
     path launched it at (``LAUNCHED``): random inputs at that shape and
@@ -1636,6 +1981,19 @@ def main() -> int:
                  "style_encoder": phase_style_encoder(tmp, counters)["launches"],
                  "add_speaker": phase_add_speaker(tmp, counters)["launches"],
                  "cli_mcd": phase_cli_mcd(tmp, counters)["launches"]}
+
+        # checkpoints across frameworks, then data parallelism (the world-1
+        # NCCL run's launches are the path's; both ranks' signatures join
+        # the path checks)
+        phase_checkpoint_crossing(tmp)
+        tools["dp_train"] = phase_dp_train(tmp)["launches"]
+
+    # seeded noise and the serving fan-out (it sets the counts to 0 itself)
+    synth = production_synthesizer("bfloat16")
+    phase_seeded_noise(synth)
+    tools["fanout"] = phase_fanout(synth, counters)["launches"]
+    del synth
+    torch.cuda.empty_cache()
 
     on_path = phase_path_signatures()
     paths = {"synthesis": synthesis, "training": training, **tools}

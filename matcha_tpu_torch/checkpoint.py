@@ -2,9 +2,17 @@
 
 Reads the flat format that ``matcha_tpu/train/checkpoint.py::save_checkpoint``
 writes without orbax (lines 46-52): ``config.json`` (the full MatchaConfig)
-plus ``state.npz``, one array per leaf keyed by its jax key path
-(``['params']['encoder']['emb']['embedding']``).  numpy alone reads it.  Orbax
-directories (``state/``) need orbax and are not read yet.
+plus ``state.npz``, one array per leaf keyed by its
+``jax.tree_util.keystr`` path.  Dict keys read ``['params']['encoder']``;
+the optax state of a trainer checkpoint adds attribute steps (``.mu``, a
+NamedTuple field) and index steps (``[1]``, a tuple element), as in
+``['opt_state'].inner_state[1][0].mu['encoder']…``.  The loaded tree keeps
+each step as a key of a nested dict: a ``str`` for a dict key, an
+``Attr`` (a ``str`` that remembers it was a field) for an attribute, an
+``int`` for an index, so ``keystr`` writes the same paths back.  numpy
+alone reads it.  Orbax directories (``state/``) are zstd-compressed OCDBT,
+which the standard library cannot read: ``tools/convert_orbax_checkpoint.py``
+turns one into this format.
 
 The Vocos weights are the parameter pickle that ``tools/convert_vocos.py``
 writes (a nested dict of numpy arrays); its widths are read off the shapes,
@@ -17,6 +25,7 @@ from __future__ import annotations
 import json
 import pickle
 import re
+from collections.abc import Mapping
 from pathlib import Path
 
 import numpy as np
@@ -25,7 +34,47 @@ from matcha_tpu_torch.models.config import MatchaConfig
 from matcha_tpu_torch.vocoder.vocos import VocosConfig
 from matcha_tpu_torch.weights import params_from_jax, vocos_params_from_jax
 
-_KEY = re.compile(r"\['([^']*)'\]")
+_STEP = re.compile(r"\['([^'\\]*)'\]|\.([A-Za-z_][A-Za-z0-9_]*)|\[(\d+)\]")
+
+
+class Attr(str):
+    """A key path step that names a NamedTuple field (``.mu``); equal to and
+    hashed as the plain string, so ``tree["mu"]`` finds it."""
+
+    __slots__ = ()
+
+
+def parse_keystr(key: str) -> list:
+    """``jax.tree_util.keystr`` output → its steps (``str`` / ``Attr`` /
+    ``int``); raises on anything else."""
+    steps, pos = [], 0
+    while pos < len(key):
+        m = _STEP.match(key, pos)
+        if m is None:
+            raise ValueError(f"unexpected key {key!r}")
+        name, attr, index = m.groups()
+        steps.append(name if name is not None else Attr(attr) if attr is not None else int(index))
+        pos = m.end()
+    if not steps:
+        raise ValueError(f"unexpected key {key!r}")
+    return steps
+
+
+def keystr(steps) -> str:
+    """The inverse of ``parse_keystr``."""
+    return "".join(f".{s}" if isinstance(s, Attr) else f"[{s}]" if isinstance(s, int) else f"['{s}']"
+                   for s in steps)
+
+
+def flatten_keystr(tree: Mapping, prefix: tuple = ()) -> dict[str, object]:
+    """Nested tree → {keystr path: leaf}."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(flatten_keystr(v, prefix + (k,)))
+        else:
+            flat[keystr(prefix + (k,))] = v
+    return flat
 
 
 def load_checkpoint(path: str | Path) -> tuple[dict, MatchaConfig]:
@@ -36,19 +85,18 @@ def load_checkpoint(path: str | Path) -> tuple[dict, MatchaConfig]:
     if not npz.exists():
         if (path / "state").exists():
             raise NotImplementedError(
-                f"{path} holds an orbax checkpoint; the port reads the flat state.npz format only"
+                f"{path} holds an orbax checkpoint, which the port cannot read; convert it with "
+                f"`python tools/convert_orbax_checkpoint.py --to-flat {path}` (needs JAX and orbax)"
             )
         raise FileNotFoundError(f"No checkpoint state under {path}")
     tree: dict = {}
     with np.load(npz) as data:
         for key in data.files:
-            parts = _KEY.findall(key)
-            if not parts or "".join(f"['{p}']" for p in parts) != key:
-                raise ValueError(f"unexpected key {key!r} in {npz}")
+            *parents, leaf = parse_keystr(key)
             node = tree
-            for p in parts[:-1]:
+            for p in parents:
                 node = node.setdefault(p, {})
-            node[parts[-1]] = data[key]
+            node[leaf] = data[key]
     return tree, cfg
 
 

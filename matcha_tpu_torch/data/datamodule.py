@@ -107,20 +107,21 @@ class TextMelDataModule:
 
     # ------------------------------------------------------------------
 
-    def train_batches(self, epoch: int):
+    def train_batches(self, epoch: int, shard: tuple[int, int] | None = None):
         """Collated train batches for one epoch (fresh jittered packing per
         epoch, stable batch count — the reference's dynamic-sampler
-        re-create-on-epoch contract)."""
+        re-create-on-epoch contract); ``shard`` = (rank, world) yields that
+        rank's block of each batch."""
         return epoch_batches(
-            self.train_ds, self.train_sampler, epoch, self.text_bucket
+            self.train_ds, self.train_sampler, epoch, self.text_bucket, shard
         )
 
-    def valid_batches(self):
+    def valid_batches(self, shard: tuple[int, int] | None = None):
         """Deterministic validation batches (same packing every call)."""
         if self.valid_sampler is None:
             return iter(())
         return epoch_batches(
-            self.valid_ds, self.valid_sampler, 0, self.text_bucket
+            self.valid_ds, self.valid_sampler, 0, self.text_bucket, shard
         )
 
     @property

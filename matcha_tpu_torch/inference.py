@@ -14,11 +14,21 @@ shapes.  Each result comes back to the host in one device→host copy.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no device on a host without CUDA, construction raises.
+
+Fan-out (``mesh=[devices]``, the counterpart of the JAX synthesizer's data
+mesh): one model and Vocos replica per device, each with its noise row and
+CUDA stream.  A batch pads to the power-of-2 ladder and then to a device
+multiple (a single request to one row per device, pad rows one token long);
+each replica runs its contiguous block of rows from its own host thread,
+and the rows come back gathered in order.  The path is host-bound, so
+issuing the replicas from one thread would serialise them.
 """
 
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
@@ -26,7 +36,7 @@ import numpy as np
 import torch
 
 from matcha_tpu_torch.models.config import MatchaConfig
-from matcha_tpu_torch.models.flow_matching import synthesis_noise_row
+from matcha_tpu_torch.models.flow_matching import seeded_synthesis_noise
 from matcha_tpu_torch.models.matcha import MatchaTTS
 from matcha_tpu_torch.utils.model_math import (
     denormalize,
@@ -119,6 +129,11 @@ def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     return out
 
 
+def _gather(blocks: list[np.ndarray]) -> np.ndarray:
+    """Replicas' row blocks in order; a lone block as it is (no host copy)."""
+    return blocks[0] if len(blocks) == 1 else np.concatenate(blocks)
+
+
 @dataclass
 class SynthesisResult:
     wav: np.ndarray                       # (n_samples,) float32 in [-1, 1]
@@ -162,62 +177,37 @@ def _as_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v) for k, v in params.items()}
 
 
-class MatchaSynthesizer:
-    """Holds the model and vocoder on one device and exposes synthesise().
+class _Replica:
+    """One device's model, vocoder and noise row, and the stages that run
+    on them; in a fan-out also the replica's host thread and CUDA stream."""
 
-    ``params`` / ``vocos_params``: state_dicts in the port's (reference
-    torch) layout — ``weights.params_from_jax`` bridges a JAX tree,
-    ``models.matcha.init_params`` draws random ones.  ``vocos_params=None``
-    returns mels only.
-    """
-
-    # fine frames a voiced token tends to expand to at pace 1.0 (a corpus
-    # statistic of the trained model; FUSED_FRAMES_PER_TOKEN in serving)
-    fused_frames_per_token: float = 8.0
-
-    def __init__(
-        self,
-        cfg: MatchaConfig,
-        params: Mapping,
-        vocos_params: Mapping | None = None,
-        vocos_cfg: VocosConfig = VocosConfig(),
-        text_buckets: Sequence[int] = DEFAULT_TEXT_BUCKETS,
-        mel_fine_buckets: Sequence[int] = DEFAULT_MEL_FINE_BUCKETS,
-        device: str | torch.device | None = None,
-    ):
-        self.device = resolve_device(device)
-        strict_fp32(self.device)
-        self.cfg = cfg
-        params = _as_state_dict(params)
-        # speaker-mixing blends run in host numpy
-        self._spk_tables_np = (
-            params["speaker_embeddings_enc.weight"].float().numpy(),
-            params["speaker_embeddings_dur.weight"].float().numpy(),
-        )
+    def __init__(self, cfg: MatchaConfig, device: torch.device, params, vocos_cfg: VocosConfig,
+                 vocos_params, noise_row: torch.Tensor, fan_out: bool):
+        strict_fp32(device)
+        self.cfg, self.device = cfg, device
         self.model = MatchaTTS(cfg)
         self.model.load_state_dict(params)
-        self.model.to(self.device).eval()
-        self.vocos_cfg = vocos_cfg
+        self.model.to(device).eval()
         self.vocos = None
-        self.vocos_params = vocos_params
         if vocos_params is not None:
             self.vocos = Vocos(vocos_cfg)
-            self.vocos.load_state_dict(_as_state_dict(vocos_params))
-            self.vocos.to(self.device).eval()
-        max_tx = cfg.encoder.rope_max_len
-        kept = tuple(b for b in text_buckets if b <= max_tx)
-        self.text_buckets = kept or (max_tx,)
-        self.mel_fine_buckets = tuple(fix_len_compatibility(b // 2) * 2 for b in mel_fine_buckets)
-        # the ODE's initial-noise row, drawn once at the largest coarse
-        # bucket; a bucket of T coarse frames uses its first T rows
-        self.noise_row = synthesis_noise_row(
-            (self.mel_fine_buckets[-1] + 1) // 2, cfg.n_feats
-        ).to(self.device)
+            self.vocos.load_state_dict(vocos_params)
+            self.vocos.to(device).eval()
+        self.noise_row = noise_row.to(device)
+        self.thread = ThreadPoolExecutor(1, thread_name_prefix="synth-replica") if fan_out else None
+        self.stream = torch.cuda.Stream(device) if fan_out and device.type == "cuda" else None
+        if self.stream is not None:
+            torch.cuda.synchronize(device)  # the weights are in place before another stream reads them
+
+    def run(self, fn, *args):
+        """``fn(self, *args)`` on this replica's CUDA stream, if it has one."""
+        with torch.cuda.stream(self.stream) if self.stream is not None else nullcontext():
+            return fn(self, *args)
 
     # -- stage A ------------------------------------------------------------
 
     @torch.inference_mode()
-    def _encode(self, x, x_lengths, spk_enc, spk_dur, scale):
+    def encode(self, x, x_lengths, spk_enc, spk_dur, scale):
         x_mask = sequence_mask(x_lengths, x.shape[1]).to(torch.float32)
         mu_x, durations = self.model.encode(x, x_mask, spk_enc, spk_dur)
         # per-speaker correction x user pace, then round-to-nearest with a
@@ -227,13 +217,13 @@ class MatchaSynthesizer:
 
     # -- stage B ------------------------------------------------------------
 
-    def _noise(self, b: int, t: int) -> torch.Tensor:
+    def noise(self, b: int, t: int) -> torch.Tensor:
         if t > self.noise_row.shape[0]:
             raise ValueError(f"{t} frames exceed the noise row ({self.noise_row.shape[0]})")
         return self.noise_row[:t][None].expand(b, t, self.noise_row.shape[1])
 
     @torch.inference_mode()
-    def _decode(self, mu_x, durations, x_mask, y_fine_lengths, noise=None, *,
+    def decode(self, mu_x, durations, x_mask, y_fine_lengths, noise=None, *,
                 y_fine_len: int, n_timesteps: int, solver: str):
         dev = mu_x.device
         y_fine_mask = sequence_mask(y_fine_lengths, y_fine_len).to(torch.float32)
@@ -252,7 +242,7 @@ class MatchaSynthesizer:
         y_lengths = (y_fine_lengths + 1) // 2
         y_mask = sequence_mask(y_lengths, mu_y.shape[1]).to(torch.float32)
         if noise is None:
-            noise = self._noise(mu_y.shape[0], mu_y.shape[1])
+            noise = self.noise(mu_y.shape[0], mu_y.shape[1])
 
         dec = self.model.decode(mu_y, y_mask, n_timesteps, solver, noise=noise)
         stats = self.cfg.data_statistics
@@ -271,17 +261,84 @@ class MatchaSynthesizer:
     # -- fused path ---------------------------------------------------------
 
     @torch.inference_mode()
-    def _synth_fused(self, x, x_lengths, spk_enc, spk_dur, scale, noise=None, *,
+    def synth_fused(self, x, x_lengths, spk_enc, spk_dur, scale, noise=None, *,
                      y_fine_len: int, n_timesteps: int, solver: str):
         """Both stages at a mel bucket fixed up-front; returns the true total
         duration so the host can detect overflow and fall back."""
-        mu_x, durations, x_mask = self._encode(x, x_lengths, spk_enc, spk_dur, scale)
+        mu_x, durations, x_mask = self.encode(x, x_lengths, spk_enc, spk_dur, scale)
         total = durations.sum(dim=1).to(torch.int32)
         y_fine_lengths = torch.clamp(total, 2, y_fine_len)
-        mel, wav, _ = self._decode(mu_x, durations, x_mask, y_fine_lengths, noise,
+        mel, wav, _ = self.decode(mu_x, durations, x_mask, y_fine_lengths, noise,
                                    y_fine_len=y_fine_len, n_timesteps=n_timesteps,
                                    solver=solver)
         return mel, wav, total
+
+
+class MatchaSynthesizer:
+    """Holds the model and vocoder on one device (or a replica on each
+    device of ``mesh``) and exposes synthesise().
+
+    ``params`` / ``vocos_params``: state_dicts in the port's (reference
+    torch) layout — ``weights.params_from_jax`` bridges a JAX tree,
+    ``models.matcha.init_params`` draws random ones.  ``vocos_params=None``
+    returns mels only.  ``mesh``: a list of devices (repeats allowed) to
+    fan batches out over; ``device`` is then ignored.
+    """
+
+    # fine frames a voiced token tends to expand to at pace 1.0 (a corpus
+    # statistic of the trained model; FUSED_FRAMES_PER_TOKEN in serving)
+    fused_frames_per_token: float = 8.0
+
+    def __init__(
+        self,
+        cfg: MatchaConfig,
+        params: Mapping,
+        vocos_params: Mapping | None = None,
+        vocos_cfg: VocosConfig = VocosConfig(),
+        text_buckets: Sequence[int] = DEFAULT_TEXT_BUCKETS,
+        mel_fine_buckets: Sequence[int] = DEFAULT_MEL_FINE_BUCKETS,
+        device: str | torch.device | None = None,
+        mesh: Sequence[str | torch.device] | None = None,
+    ):
+        if mesh is not None and not len(mesh):
+            raise ValueError("mesh needs at least one device")
+        devices = [resolve_device(d) for d in mesh] if mesh is not None else [resolve_device(device)]
+        self.mesh = devices if mesh is not None else None
+        self.n_dev = len(devices)
+        self.cfg = cfg
+        params = _as_state_dict(params)
+        # speaker-mixing blends run in host numpy
+        self._spk_tables_np = (
+            params["speaker_embeddings_enc.weight"].float().numpy(),
+            params["speaker_embeddings_dur.weight"].float().numpy(),
+        )
+        self.vocos_cfg = vocos_cfg
+        self.vocos_params = vocos_params
+        if vocos_params is not None:
+            vocos_params = _as_state_dict(vocos_params)
+        max_tx = cfg.encoder.rope_max_len
+        kept = tuple(b for b in text_buckets if b <= max_tx)
+        self.text_buckets = kept or (max_tx,)
+        self.mel_fine_buckets = tuple(fix_len_compatibility(b // 2) * 2 for b in mel_fine_buckets)
+        # the ODE's initial-noise row (the JAX package's seeded draw), made
+        # once at the largest coarse bucket; a bucket of T coarse frames
+        # uses its first T rows
+        noise_row = seeded_synthesis_noise((self.mel_fine_buckets[-1] + 1) // 2, cfg.n_feats)
+        self.replicas = [_Replica(cfg, dev, params, vocos_cfg, vocos_params, noise_row, mesh is not None)
+                         for dev in devices]
+
+    # the first (without a mesh, the only) replica's device, model and vocoder
+    @property
+    def device(self) -> torch.device:
+        return self.replicas[0].device
+
+    @property
+    def model(self) -> MatchaTTS:
+        return self.replicas[0].model
+
+    @property
+    def vocos(self) -> Vocos | None:
+        return self.replicas[0].vocos
 
     def predict_fine_bucket(self, tx: int, scale: float = 1.0) -> int:
         """Mel bucket guess for the fused path: ``fused_frames_per_token``
@@ -319,6 +376,8 @@ class MatchaSynthesizer:
         return self.vocos(torch.as_tensor(mel, dtype=torch.float32, device=self.device))
 
     def _stage_a_inputs(self, id_lists, voice_mixes, scales, b_pad, tx):
+        """Stage A's inputs for ``b_pad`` rows as CPU tensors; pad rows
+        carry one token, the first mix's speaker and scale 1."""
         x = np.zeros((b_pad, tx), np.int64)
         for k, ids in enumerate(id_lists):
             x[k, : len(ids)] = ids
@@ -327,14 +386,74 @@ class MatchaSynthesizer:
         enc_rows = list(enc_rows) + [enc_rows[0]] * (b_pad - len(id_lists))
         dur_rows = list(dur_rows) + [dur_rows[0]] * (b_pad - len(id_lists))
         scales = list(scales) + [1.0] * (b_pad - len(id_lists))
-        dev = self.device
         return (
-            torch.from_numpy(x).to(dev),
-            torch.tensor(lengths, dtype=torch.int64, device=dev),
-            torch.from_numpy(np.stack(enc_rows)).to(dev),
-            torch.from_numpy(np.stack(dur_rows)).to(dev),
-            torch.tensor(scales, dtype=torch.float32, device=dev)[:, None],
+            torch.from_numpy(x),
+            torch.tensor(lengths, dtype=torch.int64),
+            torch.from_numpy(np.stack(enc_rows)),
+            torch.from_numpy(np.stack(dur_rows)),
+            torch.tensor(scales, dtype=torch.float32)[:, None],
         )
+
+    # -- fan-out ------------------------------------------------------------
+
+    def _pad_batch(self, b: int) -> int:
+        """Rows a group of ``b`` pads to: the power-of-2 ladder, then a
+        multiple of the device count."""
+        b_pad = 1 << (b - 1).bit_length() if b > 1 else 1
+        return -(-b_pad // self.n_dev) * self.n_dev
+
+    def _fan_out(self, fn, per_replica: Sequence[tuple]) -> list:
+        """``fn(replica, *args)`` for each replica's args, in replica order.
+        Without a mesh, inline; with one, each replica on its own host
+        thread and CUDA stream."""
+        if self.mesh is None:
+            return [fn(self.replicas[0], *per_replica[0])]
+        futures = [rep.thread.submit(rep.run, fn, *args) for rep, args in zip(self.replicas, per_replica)]
+        return [f.result() for f in futures]
+
+    def _row_blocks(self, *tensors) -> list[tuple]:
+        """Host tensors → each replica's contiguous block of rows."""
+        if self.n_dev == 1:
+            return [tensors]
+        per = tensors[0].shape[0] // self.n_dev
+        return [tuple(t[k * per:(k + 1) * per] for t in tensors) for k in range(self.n_dev)]
+
+    def _run_fused(self, host_args, **kw):
+        """The fused program over a padded batch → gathered (totals, wav
+        or None) on the host, one copy per replica."""
+        def rows(rep, *block):
+            _, wav, total = rep.synth_fused(*(t.to(rep.device) for t in block), **kw)
+            return _to_host(total, *([wav] if wav is not None else []))
+
+        parts = self._fan_out(rows, self._row_blocks(*host_args))
+        wav = None if len(parts[0]) == 1 else _gather([p[1] for p in parts])
+        return _gather([p[0] for p in parts]), wav
+
+    def _run_encode(self, host_args):
+        """Stage A over a padded batch → (each replica's device outputs,
+        gathered durations)."""
+        def rows(rep, *block):
+            out = rep.encode(*(t.to(rep.device) for t in block))
+            return out, _to_host(out[1])[0]
+
+        parts = self._fan_out(rows, self._row_blocks(*host_args))
+        return [p[0] for p in parts], _gather([p[1] for p in parts])
+
+    def _run_decode(self, encs, y_fine_lengths: np.ndarray, pull_mel: bool = False, **kw):
+        """Stage B over a padded batch → gathered (mel or None, wav or
+        None), and the first replica's enc_mel."""
+        def rows(rep, enc, lengths):
+            mel, wav, enc_mel = rep.decode(*enc, lengths.to(rep.device), **kw)
+            pulled = _to_host(*([mel] if pull_mel else []), *([wav] if wav is not None else []))
+            return (pulled[0] if pull_mel else None), (pulled[-1] if wav is not None else None), enc_mel
+
+        lengths = self._row_blocks(torch.as_tensor(y_fine_lengths, dtype=torch.int64))
+        parts = self._fan_out(rows, [(enc, yl) for enc, (yl,) in zip(encs, lengths)])
+        mel = _gather([p[0] for p in parts]) if pull_mel else None
+        wav = None if parts[0][1] is None else _gather([p[1] for p in parts])
+        return mel, wav, parts[0][2]
+
+    # -- public, continued ----------------------------------------------------
 
     def synthesise_ids(
         self,
@@ -356,48 +475,46 @@ class MatchaSynthesizer:
         n = len(phoneme_ids)
         tx = pick_bucket(n, self.text_buckets)
         scale = scale_correction * length_scale
-        args = self._stage_a_inputs([phoneme_ids], [voice_mix], [scale], 1, tx)
+        # under a fan-out a single request pads to one row per device; the
+        # pad rows carry one token
+        b_pad = self.n_dev
+        args = self._stage_a_inputs([phoneme_ids], [voice_mix], [scale], b_pad, tx)
+        kw = dict(n_timesteps=n_timesteps, solver=solver)
 
         if fused and not debug:
             y_fine_len = self.predict_fine_bucket(tx, scale)
-            _, wav, total = self._synth_fused(
-                *args, y_fine_len=y_fine_len, n_timesteps=n_timesteps, solver=solver
-            )
-            pulled = _to_host(total, *([wav] if wav is not None else []))
-            total_fine = int(pulled[0][0])
+            totals, wav_full = self._run_fused(args, y_fine_len=y_fine_len, **kw)
+            total_fine = int(totals[0])
             if total_fine <= y_fine_len:
                 n_frames = (max(total_fine, 2) + 1) // 2
                 wav_np = np.zeros((0,), np.float32)
-                if wav is not None:
+                if wav_full is not None:
                     n_samples = max((n_frames - 1) * STD_RES_HOP_LENGTH, 0)
-                    wav_np = trim_trailing_silence(pulled[1][0, :n_samples])
+                    wav_np = trim_trailing_silence(wav_full[0, :n_samples])
                 return self._result(wav_np, n_frames, t0)
             # rare overflow (speech longer than the text-predicted bucket):
             # fall through to the exact two-stage path below
 
-        mu_x, durations, x_mask = self._encode(*args)
-        (durations_np,) = _to_host(durations)
+        encs, durations_np = self._run_encode(args)
         total_fine = int(durations_np.sum(axis=1)[0])
         # floor of 2 frames; runaway predictions clamp to the largest bucket
         total_fine = min(max(total_fine, 2), self.mel_fine_buckets[-1])
         y_fine_len = pick_bucket(total_fine, self.mel_fine_buckets)
-        y_fine_lengths = torch.tensor([total_fine], dtype=torch.int64, device=self.device)
-        mel, wav, enc_mel = self._decode(
-            mu_x, durations, x_mask, y_fine_lengths,
-            y_fine_len=y_fine_len, n_timesteps=n_timesteps, solver=solver,
+        mel, wav_full, enc_mel = self._run_decode(
+            encs, np.asarray([total_fine] + [2] * (b_pad - 1)), pull_mel=debug,
+            y_fine_len=y_fine_len, **kw,
         )
         n_frames = (total_fine + 1) // 2
-        pulled = _to_host(*([mel] if debug else []), *([wav] if wav is not None else []))
         wav_np = np.zeros((0,), np.float32)
-        if wav is not None:
+        if wav_full is not None:
             n_samples = max((n_frames - 1) * STD_RES_HOP_LENGTH, 0)
-            wav_np = trim_trailing_silence(pulled[-1][0, :n_samples])
+            wav_np = trim_trailing_silence(wav_full[0, :n_samples])
         result = self._result(wav_np, n_frames, t0)
         if debug:
-            result.mel = pulled[0][0, :n_frames]
+            result.mel = mel[0, :n_frames]
             result.durations = durations_np[0, :n]
             if self.vocos is not None:
-                enc_wav = self.vocode(enc_mel[:, :n_frames])
+                enc_wav = self.vocode(enc_mel[:1, :n_frames])
                 result.encoder_wav = enc_wav[0].cpu().numpy()
         return result
 
@@ -418,7 +535,8 @@ class MatchaSynthesizer:
         fused: bool = False,
     ) -> list[SynthesisResult]:
         """Batched synthesis: utterances padded to common text/mel buckets
-        and decoded in one call; the batch pads to a power of two."""
+        and decoded in one call; the batch pads to a power of two, then to
+        a device multiple."""
         t0 = time.perf_counter()
         b = len(id_lists)
         if voice_mixes is None:
@@ -428,35 +546,25 @@ class MatchaSynthesizer:
         if len(voice_mixes) != b:
             raise ValueError("pass one voice mix per utterance")
         length_scales = length_scales or [1.0] * b
-        b_pad = 1 << (b - 1).bit_length() if b > 1 else 1
+        b_pad = self._pad_batch(b)
         tx = pick_bucket(max(len(ids) for ids in id_lists), self.text_buckets)
         scales = [blended_scale_correction(m) * s for m, s in zip(voice_mixes, length_scales)]
         args = self._stage_a_inputs(id_lists, voice_mixes, scales, b_pad, tx)
+        kw = dict(n_timesteps=n_timesteps, solver=solver)
 
         if fused:
             # the group shares ONE mel bucket, sized for its slowest pace
             yf_pred = self.predict_fine_bucket(tx, max(scales))
-            _, wav, total = self._synth_fused(
-                *args, y_fine_len=yf_pred, n_timesteps=n_timesteps, solver=solver
-            )
-            pulled = _to_host(total, *([wav] if wav is not None else []))
-            totals = pulled[0].astype(int)
+            totals, wav_np = self._run_fused(args, y_fine_len=yf_pred, **kw)
+            totals = totals.astype(int)
             if int(totals[:b].max(initial=2)) <= yf_pred:
-                return self._collect_batch_results(
-                    b, pulled[1] if wav is not None else None, np.clip(totals, 2, yf_pred), t0
-                )
+                return self._collect_batch_results(b, wav_np, np.clip(totals, 2, yf_pred), t0)
             # overflow in at least one utterance: exact two-stage path
 
-        mu_x, durations, x_mask = self._encode(*args)
-        (durations_np,) = _to_host(durations)
+        encs, durations_np = self._run_encode(args)
         totals = np.clip(durations_np.sum(axis=1).astype(int), 2, self.mel_fine_buckets[-1])
         y_fine_len = pick_bucket(int(totals.max()), self.mel_fine_buckets)
-        _, wav, _ = self._decode(
-            mu_x, durations, x_mask,
-            torch.tensor(totals, dtype=torch.int64, device=self.device),
-            y_fine_len=y_fine_len, n_timesteps=n_timesteps, solver=solver,
-        )
-        wav_np = _to_host(wav)[0] if wav is not None else None
+        _, wav_np, _ = self._run_decode(encs, totals, y_fine_len=y_fine_len, **kw)
         return self._collect_batch_results(b, wav_np, totals, t0)
 
     def _collect_batch_results(self, b: int, wav_np, totals, t0: float) -> list[SynthesisResult]:
@@ -500,12 +608,9 @@ class MatchaSynthesizer:
         on synthetic inputs."""
         n = max(tx // 2, 2)
         args = self._stage_a_inputs([[0] * n] * b, [[(0, 1.0)]] * b, [1.0] * b, b, tx)
-        mu_x, durations, x_mask = self._encode(*args)
-        total = torch.full((b,), min(n, y_fine_len), dtype=torch.int64, device=self.device)
-        self._decode(mu_x, durations, x_mask, total, y_fine_len=y_fine_len,
-                     n_timesteps=n_timesteps, solver=solver)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        encs, _ = self._run_encode(args)
+        self._run_decode(encs, np.full((b,), min(n, y_fine_len)), y_fine_len=y_fine_len,
+                         n_timesteps=n_timesteps, solver=solver)
 
     def warmup(
         self,
@@ -524,9 +629,12 @@ class MatchaSynthesizer:
         likely mel bucket for each batch size; ``full=True`` runs every
         reachable (text, mel) pair.  ``fused`` is accepted for the JAX
         package's signature: the fused path runs the same modules.
-        ``on_size_ready(b)`` is called after each batch size.
+        ``on_size_ready(b)`` is called after each batch size.  Under a
+        fan-out the sizes round up to device multiples, as the serving
+        paths pad them.
         """
         del fused
+        batch_sizes = sorted({-(-b // self.n_dev) * self.n_dev for b in batch_sizes})
         tx0 = self.text_buckets[0]
         expect = min(int((tx0 // 2) * self.fused_frames_per_token), self.mel_fine_buckets[-1])
         pairs = self.reachable_bucket_pairs() if full else [(tx0, pick_bucket(expect, self.mel_fine_buckets))]

@@ -96,7 +96,9 @@ class MatchaTTS(nn.Module):
 
     def compute_losses(self, x, x_lengths, y, y_lengths, y_fine, y_fine_lengths, spks,
                        generator: torch.Generator | None = None, *,
-                       deterministic: bool = False, cfm_t_noise=None, row_weights=None):
+                       deterministic: bool = False, cfm_t_noise=None, row_weights=None,
+                       dropout_generator: torch.Generator | None = None,
+                       sum_over_ranks=None, rows: tuple[int, int] | None = None):
         """Duration, prior and CFM losses of one padded batch
         (reference: matcha_tts.py:64-163; JAX ``compute_losses``).
 
@@ -107,6 +109,15 @@ class MatchaTTS(nn.Module):
         weight each row's losses (0 for repeat-filled rows).  Returns the
         losses, their sum ``loss``, ``mas_frames`` and the abs-error
         quantile diagnostics.
+
+        ``dropout_generator`` draws the dropout masks instead of
+        ``generator``.  Data parallelism (``train/step.py``): this process
+        holds rows ``rows`` = (first, global count) of the batch;
+        ``sum_over_ranks`` sums the three loss denominators (Σ x_len·w,
+        Σ y_fine_len·w, Σ y_len·w·C) over the group before they divide, so
+        each rank's losses are its share of the global batch's and their sum
+        over ranks is the single process's loss; CFM's t and noise come at
+        the global shape.  The quantile diagnostics stay per rank.
         """
         cfg = self.cfg
         dev = y.device
@@ -115,7 +126,12 @@ class MatchaTTS(nn.Module):
         x_mask = sequence_mask(x_lengths, x.shape[1]).float()
         y_mask = sequence_mask(y_lengths, y.shape[1]).float()
         y_fine_mask = sequence_mask(y_fine_lengths, y_fine.shape[1]).float()
-        drop = None if deterministic else generator
+        drop = None if deterministic else dropout_generator if dropout_generator is not None else generator
+        # the batch-wide denominators of the three losses
+        dens = torch.stack([(x_lengths * w).sum(), (y_fine_mask * w[:, None]).sum(),
+                            (y_mask * w[:, None]).sum() * y.shape[-1]])
+        if sum_over_ranks is not None:
+            dens = sum_over_ranks(dens)
 
         spk_enc, spk_dur = self.speaker_embeddings(spks)
         mu_x, logw = self.encoder(x, x_mask, spk_enc, spk_dur, drop)
@@ -133,7 +149,7 @@ class MatchaTTS(nn.Module):
         logw_target = torch.log(2.0 + mas_durations) * x_mask
         dur_loss = (F.huber_loss(logw, logw_target, reduction="none",
                                  delta=cfg.duration_loss_threshold) * w[:, None]).sum()
-        dur_loss = dur_loss / (x_lengths * w).sum()
+        dur_loss = dur_loss / dens[0]
 
         # ---- prior loss (fine resolution, fp32): a gather, not a path matmul ----
         gather_idx = idx.long().clamp(min=0)[:, :, None].expand(-1, -1, mu_x32.shape[-1])
@@ -142,7 +158,7 @@ class MatchaTTS(nn.Module):
             m = y_fine_mask[..., None]
             prior_loss = (F.huber_loss(mu_y_fine * m, y_fine32 * m, reduction="none",
                                        delta=cfg.prior_loss_threshold) * w[:, None, None]).sum()
-            prior_loss = prior_loss / (y_fine_mask * w[:, None]).sum()
+            prior_loss = prior_loss / dens[1]
         else:
             prior_loss = torch.zeros((), dtype=torch.float32, device=dev)
 
@@ -155,7 +171,7 @@ class MatchaTTS(nn.Module):
 
         diff_loss = cfm_loss(velocity, y, y_mask, mu_y, generator,
                              sigma_min=cfg.cfm.sigma_min, use_mu_prior=cfg.cfm.use_mu_prior,
-                             t_noise=cfm_t_noise, row_weights=w)
+                             t_noise=cfm_t_noise, row_weights=w, denominator=dens[2], rows=rows)
 
         # abs-error quantiles, to tune the Huber thresholds (matcha_tts.py:166-182)
         with torch.no_grad():
@@ -185,9 +201,10 @@ class MatchaTTS(nn.Module):
         return mu_x, (torch.exp(logw) - 2.0) * x_mask
 
     def decode(self, mu_y, y_mask, n_timesteps: int, solver: str | None = None, *,
-               noise: torch.Tensor, masked_norm: bool = True):
+               noise: torch.Tensor | None = None, masked_norm: bool = True):
         """Prior → mel via the CFM ODE; GroupNorm statistics over valid
-        frames by default (see the JAX package's ``decode``)."""
+        frames by default (see the JAX package's ``decode``).  ``noise=None``
+        starts every row from the default seed's row."""
         estimator = self.decoder.estimator
 
         def velocity(xt, mask, mu, t):

@@ -488,6 +488,8 @@ def main():
     ckpt = os.environ.get("CHECKPOINT_PATH")
     if not ckpt:
         raise SystemExit("Set CHECKPOINT_PATH to a checkpoint directory")
+    import torch
+
     from matcha_tpu_torch.checkpoint import load_synthesizer
     from matcha_tpu_torch.inference import (
         DEFAULT_MEL_FINE_BUCKETS,
@@ -495,14 +497,21 @@ def main():
     )
 
     # operational overrides: trim the bucket ladder for a known workload,
-    # disable micro-batching for A/B latency measurement (USE_BATCHER=0)
+    # disable micro-batching for A/B latency measurement (USE_BATCHER=0),
+    # SERVE_MESH=1 fans batched groups out over every card of the host (a
+    # replica per card, each group's rows split between them)
     tb = os.environ.get("TEXT_BUCKETS")
     mb = os.environ.get("MEL_BUCKETS")
+    mesh = None
+    if os.environ.get("SERVE_MESH", "0") == "1" and torch.cuda.device_count() > 1:
+        mesh = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        print(f"fan-out over {len(mesh)} cards")
     synth = load_synthesizer(
         ckpt,
         os.environ.get("VOCODER_PATH"),
         text_buckets=tuple(int(x) for x in tb.split(",")) if tb else DEFAULT_TEXT_BUCKETS,
         mel_fine_buckets=tuple(int(x) for x in mb.split(",")) if mb else DEFAULT_MEL_FINE_BUCKETS,
+        mesh=mesh,
     )
     # FUSED_FRAMES_PER_TOKEN: the trained model's pace statistic (fine
     # frames per token at speed 1.0) behind the fused path's mel bucket

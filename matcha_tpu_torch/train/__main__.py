@@ -7,7 +7,12 @@ The JAX package's config surface (reference Hydra CLI, matcha/train.py):
 
 through the light YAML composer (configs/train.yaml + configs/experiment/*),
 which needs PyYAML.  Trains on the card; ``device=cpu`` runs the plain
-versions on the CPU.
+versions on the CPU.  Data-parallel over N cards of one host:
+
+    torchrun --nproc_per_node=N -m matcha_tpu_torch.train [overrides...]
+
+each rank on ``cuda:$LOCAL_RANK`` (``trainer.use_mesh=false`` trains each
+process alone).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from pathlib import Path
 
 from matcha_tpu_torch.data.dataset import TextMelDataset
@@ -110,6 +116,8 @@ def build_trainer(cfg: dict, trainable_mask=None) -> Trainer:
             keep_last_checkpoints=int(tr.get("keep_last_checkpoints", 10)),
             log_every_n_steps=int(tr.get("log_every_n_steps", 10)),
             seed=int(cfg.get("seed", 1234)),
+            use_mesh=str(tr.get("use_mesh", True)).lower() not in ("false", "0", "no"),
+            tensor_parallel=int(tr.get("tensor_parallel", 1)),
         ),
         train_dataset=train_ds,
         valid_dataset=valid_ds,
@@ -117,8 +125,14 @@ def build_trainer(cfg: dict, trainable_mask=None) -> Trainer:
         len_bucket=int(data.get("len_bucket", 32)),
         text_bucket=int(data.get("text_bucket", 32)),
         trainable_mask=trainable_mask,
-        device=cfg.get("device"),
+        device=cfg.get("device") or default_device(),
     )
+
+
+def default_device() -> str | None:
+    """``cuda:$LOCAL_RANK`` under torchrun, else None (the card)."""
+    local = os.environ.get("LOCAL_RANK")
+    return f"cuda:{int(local)}" if local is not None else None
 
 
 def main(argv=None):
@@ -135,7 +149,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = compose(args.config, args.overrides)
-    print(json.dumps(cfg, indent=2, default=str))
+    if os.environ.get("RANK", "0") == "0":
+        print(json.dumps(cfg, indent=2, default=str))
     trainer = build_trainer(cfg)
     try:
         trainer.fit(resume_from=cfg.get("ckpt_path"))

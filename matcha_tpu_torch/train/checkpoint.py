@@ -1,18 +1,38 @@
-"""Training checkpoints in the flat format the port's reader loads, and
-checkpoint surgery.
+"""Training checkpoints in the JAX trainer's flat format, and checkpoint
+surgery.
 
 ``save_tree`` writes a directory with ``config.json`` (the full
 MatchaConfig) and ``state.npz``: one array per leaf of a nested numpy tree,
-keyed by its jax key path as ``matcha_tpu/train/checkpoint.py`` writes it
-without orbax; ``matcha_tpu_torch.checkpoint.load_checkpoint`` reads it
-back.  ``save_checkpoint`` writes a training state that way.  The
-parameters are in the flax layout (``weights.params_to_jax``), so
-``load_synthesizer`` serves a checkpoint the port trained and the JAX
-package's models take its ``params`` tree.  Adam's moments sit under
-``['opt_state']['mu'|'nu']`` (and ``acc_grads`` when gradients
-accumulate) in the same layout, the optimizer's counters under
-``['opt_state'][...]``, and ``['step']``, ``['epoch']`` at the top;
-``train_state_from_tree`` turns a loaded tree back into a training state.
+keyed by its ``jax.tree_util.keystr`` path, as ``matcha_tpu/train/
+checkpoint.py`` writes it without orbax; ``matcha_tpu_torch.checkpoint.
+load_checkpoint`` reads it back.  ``save_checkpoint`` writes a training
+state under the JAX trainer's own key paths, so a checkpoint of the port
+is a checkpoint of the JAX trainer (through ``tools/
+convert_orbax_checkpoint.py --to-orbax`` where that trainer reads orbax
+only): the parameters in the flax layout (``weights.params_to_jax``), the
+optimizer state where optax keeps it, ``['step']`` and ``['epoch']``.
+
+The optax chain of ``matcha_tpu/train/optim.py`` is
+``MultiSteps(apply_if_finite(chain(chain(clip, adamw), masked(zero))))``,
+each wrapper present only when configured (accumulation > 1, the finite
+check on, a trainable mask set).  Its leaves, and their ``OptState`` fields:
+
+  MultiSteps        .mini_step → mini_step      .gradient_step → gradient_step
+                    .acc_grads[...] → acc_grads .inner_opt_state → (below)
+  apply_if_finite   .notfinite_count → notfinite_count
+                    .last_finite → last_finite  .total_notfinite → total_notfinite
+                    .inner_state → (below)
+  chain             [0] clip (no state), [1] adamw = (ScaleByAdamState, masked
+                    decay, learning rate); with a trainable mask the chain is
+                    the outer chain's [0] and the frozen-update mask its [1]
+                    (no state)
+  ScaleByAdamState  .count → count    .mu[...] → mu    .nu[...] → nu
+
+so Adam's moments sit at ``['opt_state'].inner_state[1][0].mu['encoder']…``
+in the default chain.  MultiSteps' skip state is empty.
+``train_state_from_tree`` reads that layout, and the one the port wrote
+before it (``['opt_state']['mu'|'nu'|'count'|'notfinite_count'|
+'mini_step'|'acc_grads']``).
 
 The surgery functions are the JAX package's (``matcha_tpu/train/
 checkpoint.py:80-198``) on these trees: stripping for release, uniform
@@ -31,43 +51,82 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from matcha_tpu_torch.checkpoint import Attr, flatten_keystr
 from matcha_tpu_torch.models.config import MatchaConfig
-from matcha_tpu_torch.train.optim import OptState
+from matcha_tpu_torch.train.optim import AdamW, OptState
 from matcha_tpu_torch.weights import flatten_tree, params_from_jax, params_to_jax, unflatten_tree
 
 SPEAKER_TABLES = ("speaker_embeddings_enc", "speaker_embeddings_dur")
-
-
-def _keystr(path: str) -> str:
-    return "".join(f"['{p}']" for p in path.split("/"))
 
 
 def save_tree(path: str | Path, tree: Mapping, cfg: MatchaConfig) -> None:
     """A nested tree of arrays + its config → a flat checkpoint directory."""
     path = Path(path).absolute()
     path.mkdir(parents=True, exist_ok=True)
-    flat = flatten_tree(tree)
-    np.savez(path / "state.npz", **{_keystr(k): np.asarray(v) for k, v in flat.items()})
+    flat = flatten_keystr(tree)
+    np.savez(path / "state.npz", **{k: np.asarray(v) for k, v in flat.items()})
     (path / "config.json").write_text(json.dumps(cfg.to_dict(), indent=2))
 
 
+def _i32(value) -> np.ndarray:
+    return np.asarray(int(value), np.int32)
+
+
+def optax_state_tree(opt_state: OptState, cfg: MatchaConfig, *, skip_nonfinite: bool = True,
+                     masked: bool = False) -> dict:
+    """``OptState`` → the optax chain's state tree, keyed as the JAX trainer's
+    (see the module docstring)."""
+    node = {1: {0: {Attr("count"): _i32(opt_state.count),
+                    Attr("mu"): params_to_jax(opt_state.mu, cfg),
+                    Attr("nu"): params_to_jax(opt_state.nu, cfg)}}}
+    if masked:
+        node = {0: node}
+    if skip_nonfinite:
+        node = {Attr("notfinite_count"): _i32(opt_state.notfinite_count),
+                Attr("last_finite"): np.asarray(bool(opt_state.last_finite)),
+                Attr("total_notfinite"): _i32(opt_state.total_notfinite),
+                Attr("inner_state"): node}
+    if opt_state.acc_grads is not None:
+        node = {Attr("mini_step"): _i32(opt_state.mini_step),
+                Attr("gradient_step"): _i32(opt_state.gradient_step),
+                Attr("inner_opt_state"): node,
+                Attr("acc_grads"): params_to_jax(opt_state.acc_grads, cfg)}
+    return node
+
+
 def save_checkpoint(path: str | Path, params, opt_state: OptState, step: int, epoch: int,
-                    cfg: MatchaConfig) -> None:
+                    cfg: MatchaConfig, optimizer: AdamW | None = None) -> None:
+    """A training state → a flat checkpoint in the JAX trainer's key paths.
+
+    ``optimizer`` tells the chain's shape (finite check, trainable mask);
+    without it, the default chain.  Accumulation shows in ``acc_grads``.
+    """
+    skip, masked = True, False
+    if optimizer is not None:
+        skip, masked = optimizer.cfg.skip_nonfinite_updates, optimizer.trainable is not None
     tree = {
         "params": params_to_jax(params, cfg),
-        "opt_state": {
-            "mu": params_to_jax(opt_state.mu, cfg),
-            "nu": params_to_jax(opt_state.nu, cfg),
-            "count": np.asarray(int(opt_state.count), np.int32),
-            "notfinite_count": np.asarray(int(opt_state.notfinite_count), np.int32),
-            "mini_step": np.asarray(opt_state.mini_step, np.int32),
-        },
+        "opt_state": optax_state_tree(opt_state, cfg, skip_nonfinite=skip, masked=masked),
         "step": np.asarray(step, np.int64),
         "epoch": np.asarray(epoch, np.int64),
     }
-    if opt_state.acc_grads is not None:
-        tree["opt_state"]["acc_grads"] = params_to_jax(opt_state.acc_grads, cfg)
     save_tree(path, tree, cfg)
+
+
+def optax_state_parts(opt_tree: Mapping) -> tuple[Mapping, Mapping, Mapping]:
+    """A checkpoint's ``opt_state`` subtree, in either layout → its Adam,
+    finite-check and accumulation nodes (the last two empty when absent)."""
+    if "mu" in opt_tree:  # the layout the port wrote before
+        return opt_tree, opt_tree, opt_tree
+    multi = finite = {}
+    node = opt_tree
+    if "inner_opt_state" in node:
+        multi, node = node, node["inner_opt_state"]
+    if "notfinite_count" in node:
+        finite, node = node, node["inner_state"]
+    if 0 in node:  # the chain sits inside the trainable-mask chain
+        node = node[0]
+    return node[1][0], finite, multi
 
 
 def train_state_from_tree(tree: Mapping, cfg: MatchaConfig, device, with_optimizer: bool = True):
@@ -78,17 +137,23 @@ def train_state_from_tree(tree: Mapping, cfg: MatchaConfig, device, with_optimiz
     def to_state(subtree):
         return {n: t.to(device) for n, t in params_from_jax(subtree, cfg).items()}
 
+    def scalar(value, dtype):
+        return torch.tensor(np.asarray(value).item(), dtype=dtype, device=device)
+
     params = {n: t.requires_grad_(True) for n, t in to_state(tree["params"]).items()}
     opt_state = None
     if with_optimizer:
-        o = tree["opt_state"]
+        adam, finite, multi = optax_state_parts(tree["opt_state"])
         opt_state = OptState(
-            mu=to_state(o["mu"]),
-            nu=to_state(o["nu"]),
-            count=torch.tensor(int(o["count"]), dtype=torch.int32, device=device),
-            notfinite_count=torch.tensor(int(o["notfinite_count"]), dtype=torch.int32, device=device),
-            mini_step=int(o["mini_step"]),
-            acc_grads=to_state(o["acc_grads"]) if "acc_grads" in o else None,
+            mu=to_state(adam["mu"]),
+            nu=to_state(adam["nu"]),
+            count=scalar(adam["count"], torch.int32),
+            notfinite_count=scalar(finite.get("notfinite_count", 0), torch.int32),
+            mini_step=int(multi.get("mini_step", 0)),
+            acc_grads=to_state(multi["acc_grads"]) if "acc_grads" in multi else None,
+            last_finite=scalar(finite.get("last_finite", True), torch.bool),
+            total_notfinite=scalar(finite.get("total_notfinite", 0), torch.int32),
+            gradient_step=int(multi.get("gradient_step", 0)),
         )
     # a released checkpoint (strip_for_release) has no epoch
     return params, opt_state, int(tree.get("step", 0)), int(tree.get("epoch", 0))

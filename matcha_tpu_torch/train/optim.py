@@ -53,7 +53,9 @@ MAX_CONSECUTIVE_ERRORS = 10
 
 @dataclass
 class OptState:
-    """Adam's moments and counters, keyed by parameter name."""
+    """Adam's moments and counters, keyed by parameter name: every leaf of
+    the optax chain's state (``train/checkpoint.py`` maps them onto its key
+    paths)."""
 
     mu: dict[str, torch.Tensor]
     nu: dict[str, torch.Tensor]
@@ -61,6 +63,17 @@ class OptState:
     notfinite_count: torch.Tensor  # consecutive non-finite gradients (int32)
     mini_step: int = 0             # position inside an accumulation window
     acc_grads: dict[str, torch.Tensor] | None = None
+    # apply_if_finite's record: was the last gradient finite, how many were not
+    last_finite: torch.Tensor | None = None     # bool, on device
+    total_notfinite: torch.Tensor | None = None  # int32, on device
+    gradient_step: int = 0         # MultiSteps' count of emitted (averaged) updates
+
+    def __post_init__(self):
+        dev = self.count.device
+        if self.last_finite is None:
+            self.last_finite = torch.ones((), dtype=torch.bool, device=dev)
+        if self.total_notfinite is None:
+            self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -102,6 +115,7 @@ class AdamW:
             state.mini_step = (n_acc + 1) % k
             if state.mini_step != 0:
                 return
+            state.gradient_step += 1
             self._apply(params, state.acc_grads, state)
             for acc in state.acc_grads.values():
                 acc.mul_(0)  # as MultiSteps resets its accumulator: 0·acc
@@ -119,6 +133,8 @@ class AdamW:
                                     state.notfinite_count + 1)
             accept = finite | (notfinite > MAX_CONSECUTIVE_ERRORS)
             state.notfinite_count = notfinite
+            state.last_finite = finite
+            state.total_notfinite = state.total_notfinite + (~finite).to(torch.int32)
         else:
             accept = torch.ones((), dtype=torch.bool, device=g_norm.device)
         count = state.count + accept.to(torch.int32)

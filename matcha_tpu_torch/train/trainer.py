@@ -1,6 +1,6 @@
 """Training loop: epochs over bucketed batches, validation, checkpoints.
 
-Counterpart of ``matcha_tpu/train/trainer.py`` on one device:
+Counterpart of ``matcha_tpu/train/trainer.py``:
 
   * the sampler re-seeded per epoch (fresh jittered packing, stable count)
   * validation every N epochs through the same loss pipeline
@@ -9,8 +9,15 @@ Counterpart of ``matcha_tpu/train/trainer.py`` on one device:
   * a prefetch thread collates the next batches and copies them to the
     card from pinned memory with ``non_blocking=True`` while steps run
 
-``TrainerConfig.use_mesh`` is accepted and ignored (one device);
-``tensor_parallel > 1`` raises.  Data parallelism is later work.
+Data parallelism (``TrainerConfig.use_mesh``, the default): when a process
+group is running, or ``WORLD_SIZE`` > 1 asks for one (``torchrun``; the
+trainer then starts it and ``close`` ends it), every batch size is a
+multiple of the group's size, each rank collates and trains on its block
+of rows (MAS runs per rank on them, as the JAX package's shard_map does),
+the step sums losses and gradients over the group (``train/step.py``),
+validation losses are summed likewise, and only rank 0 writes checkpoints
+and metrics; every rank reads a checkpoint on resume.  One process with no
+group trains alone.  ``tensor_parallel > 1`` raises.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ import torch
 from matcha_tpu_torch.checkpoint import load_checkpoint
 from matcha_tpu_torch.data.datamodule import TextMelDataModule
 from matcha_tpu_torch.data.dataset import TextMelDataset
+from matcha_tpu_torch.inference import resolve_device
 from matcha_tpu_torch.models.config import MatchaConfig
+from matcha_tpu_torch.parallel import mesh
 from matcha_tpu_torch.train.checkpoint import (
     expand_speaker_tables,
     save_checkpoint,
@@ -47,8 +56,11 @@ class TrainerConfig:
     keep_last_checkpoints: int = 10
     log_every_n_steps: int = 10
     seed: int = 1234
-    use_mesh: bool = True      # accepted for config compatibility; one device
+    use_mesh: bool = True      # data-parallel over the process group, if there is one
     tensor_parallel: int = 1
+    # the store of the group the trainer starts when WORLD_SIZE > 1 (nccl on
+    # the card, gloo on the CPU); torchrun's MASTER_ADDR/PORT by default
+    dist_init_method: str = "env://"
 
 
 class MetricLogger:
@@ -82,6 +94,16 @@ class MetricLogger:
             self.tb = None
 
 
+class NullLogger:
+    """The metrics sink of a rank other than 0: drops everything."""
+
+    def log(self, step: int, metrics: dict):
+        pass
+
+    def close(self):
+        pass
+
+
 class Trainer:
     def __init__(
         self,
@@ -97,21 +119,28 @@ class Trainer:
         device=None,
     ):
         if trainer_cfg.tensor_parallel > 1:
-            raise NotImplementedError("tensor parallelism is not ported: the port trains on one device")
+            raise NotImplementedError("tensor parallelism is not ported: the port trains data-parallel only")
         self.model_cfg = model_cfg
         self.cfg = trainer_cfg
         self.trainable_mask = trainable_mask
-        self.steps = TrainStep(model_cfg, opt_cfg, device, trainable_mask)
+        device = resolve_device(device)
+        self._owns_group = False
+        if trainer_cfg.use_mesh and not mesh.active() and mesh.env_world_size() > 1:
+            mesh.init_data_parallel(device, init_method=trainer_cfg.dist_init_method)
+            self._owns_group = True
+        self.data_parallel = trainer_cfg.use_mesh and mesh.active()
+        self.rank, self.world = (mesh.rank(), mesh.world()) if self.data_parallel else (0, 1)
+        self.steps = TrainStep(model_cfg, opt_cfg, device, trainable_mask, self.data_parallel)
         self.device = self.steps.device
         self.train_step = self.steps.train_step
         self.eval_step = self.steps.eval_step
         self.dm = TextMelDataModule(
             train_dataset, valid_dataset,
             max_frames_per_batch=max_frames_per_batch, len_bucket=len_bucket,
-            text_bucket=text_bucket, seed=trainer_cfg.seed,
+            text_bucket=text_bucket, batch_multiple=self.world, seed=trainer_cfg.seed,
         )
         self.out_dir = Path(trainer_cfg.output_dir)
-        self.logger = MetricLogger(self.out_dir)
+        self.logger = MetricLogger(self.out_dir) if self.rank == 0 else NullLogger()
 
     def set_datasets(self, train_dataset: TextMelDataset, valid_dataset: TextMelDataset | None = None):
         """Swap datasets (e.g. speaker-filtered) and rebuild the samplers."""
@@ -125,6 +154,19 @@ class Trainer:
     def valid_ds(self) -> TextMelDataset | None:
         return self.dm.valid_ds
 
+    @property
+    def sampler(self):
+        return self.dm.train_sampler
+
+    @property
+    def valid_sampler(self):
+        return self.dm.valid_sampler
+
+    @property
+    def _shard(self) -> tuple[int, int] | None:
+        """This rank's (rank, world) under data parallelism."""
+        return (self.rank, self.world) if self.data_parallel else None
+
     def init_state(self, resume_from: str | None = None) -> TrainState:
         """Fresh (random weights from the run's seed) or resumed state.
 
@@ -136,6 +178,12 @@ class Trainer:
         optimizer fresh, as the JAX trainer does, and needs the
         checkpoint's speaker count.
         """
+        state = self._load_state(resume_from)
+        if self.data_parallel:  # every rank starts from rank 0's parameters
+            mesh.broadcast_state(state.params)
+        return state
+
+    def _load_state(self, resume_from: str | None) -> TrainState:
         if not resume_from:
             return self.steps.init_state(generator=torch.Generator().manual_seed(self.cfg.seed))
         fine_tune = self.trainable_mask is not None
@@ -218,7 +266,7 @@ class Trainer:
         while not done and (self.cfg.max_epochs < 0 or epoch < self.cfg.max_epochs):
             t_epoch = time.time()
             losses = []
-            for batch in self._prefetch(self.dm.train_batches(epoch)):
+            for batch in self._prefetch(self.dm.train_batches(epoch, self._shard)):
                 state, metrics = self.train_step(state, batch, self.cfg.seed)
                 losses.append(metrics["loss"])
                 if state.step % self.cfg.log_every_n_steps == 0:
@@ -243,7 +291,7 @@ class Trainer:
 
     def validate(self, state: TrainState, epoch: int):
         vals = []
-        for i, batch in enumerate(self._prefetch(self.dm.valid_batches())):
+        for i, batch in enumerate(self._prefetch(self.dm.valid_batches(self._shard))):
             # a seed per batch, so CFM's (t, noise) differ across batches
             m = self.eval_step(state.params, batch, step_seed(self.cfg.seed, i))
             vals.append(float(m["loss"]))
@@ -251,9 +299,14 @@ class Trainer:
                                      "epoch": epoch})
 
     def save(self, state: TrainState, epoch: int):
-        path = self.out_dir / "checkpoints" / f"epoch_{epoch:05d}"
-        save_checkpoint(path, state.params, state.opt_state, state.step, epoch, self.model_cfg)
-        self._prune_checkpoints()
+        """Rank 0 writes; the others wait until it has."""
+        if self.rank == 0:
+            path = self.out_dir / "checkpoints" / f"epoch_{epoch:05d}"
+            save_checkpoint(path, state.params, state.opt_state, state.step, epoch, self.model_cfg,
+                            optimizer=self.steps.opt)
+            self._prune_checkpoints()
+        if self.data_parallel:
+            mesh.barrier()
 
     def _prune_checkpoints(self):
         ckpt_dir = self.out_dir / "checkpoints"
@@ -263,5 +316,15 @@ class Trainer:
             shutil.rmtree(stale, ignore_errors=True)
 
     def close(self):
-        """Release the metrics sinks."""
+        """Release the metrics sinks, and the process group if this trainer
+        started it."""
         self.logger.close()
+        if self._owns_group:
+            mesh.destroy()
+            self._owns_group = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

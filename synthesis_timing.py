@@ -1,0 +1,53 @@
+"""End-to-end synthesis time of one checkout, at full width on the card.
+
+    python3 synthesis_timing.py [ROOT]
+
+Imports ``matcha_tpu_torch`` from ROOT (default: the directory of this
+file), makes the full-width bf16 synthesizer with seeded random weights
+(``chip_smoke.production_synthesizer``) and runs two phases of
+``chip_smoke.py`` on it through the synthesizer's public entry points:
+``model`` (B=1 fused latency over 10 requests, B=16 fused RTF over 3 calls,
+one long request) and ``profile`` (host wall time and device busy time of
+one B=1 and one B=16 call).  Prints the two phases' lines, then one JSON
+line with the card and the numbers to compare.  Needs a CUDA card.  To
+compare two checkouts, run each in its own process in turns on one card:
+A, B, B, A.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+from chip_smoke import phase_model, phase_profile, production_synthesizer
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("synthesis_timing: no CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    from matcha_tpu_torch.ops.attention import masked_attention_fwd_count
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    synth = production_synthesizer("bfloat16")
+    model = phase_model(synth, masked_attention_fwd_count)
+    profile = phase_profile(synth)
+    print(json.dumps({
+        "root": root, "card": smi,
+        "b1_fused_latency_ms_p50": model["b1_fused_latency_ms_p50"],
+        "b1_fused_latency_ms": model["b1_fused_latency_ms"],
+        "b16_fused_rtf_median": model["b16_fused_rtf_median"],
+        "profile": {k: {m: profile[k][m] for m in ("wall_ms", "device_busy_ms", "device_idle_share")}
+                    for k in ("b1_fused", "b16_fused")}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

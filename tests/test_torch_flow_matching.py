@@ -48,8 +48,9 @@ def test_unknown_solver_raises():
 
 
 def test_noise_row_slices_are_bucket_invariant():
-    long = tfm.synthesis_noise_row(64, 8)
-    assert torch.equal(tfm.synthesis_noise_row(64, 8), long)
+    long = tfm.seeded_synthesis_noise(64, 8)
+    assert torch.equal(tfm.seeded_synthesis_noise(64, 8), long)
+    assert torch.equal(tfm.seeded_synthesis_noise(16, 8), long[:16])
     assert long.dtype == torch.float32 and long.shape == (64, 8)
 
 

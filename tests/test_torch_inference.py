@@ -1,9 +1,8 @@
 """The port's synthesis path end to end vs the JAX MatchaSynthesizer.
 
 tiny_config + a narrow Vocos, random JAX weights bridged into the port, the
-same bucket ladders, and the JAX package's seeded noise row injected into
-the port (its own row comes from a torch.Generator, which cannot reproduce
-threefry).  fp32 on the CPU.  Tolerances: mel 2e-3 absolute (denormalized
+same bucket ladders, and each package's own seeded noise row (the port's
+reproduces the JAX draw, tests/test_torch_seeded_noise.py).  fp32 on the CPU.  Tolerances: mel 2e-3 absolute (denormalized
 log-mel, std 6.5: eight U-Net evaluations of fp32 in another summation
 order); waveform 1e-3 of its peak (the ISTFT amplifies mel differences
 through exp()).  Within the port: fused == two-stage and batch ==
@@ -17,7 +16,6 @@ import torch
 
 from matcha_tpu.inference import MatchaSynthesizer as JaxSynthesizer
 from matcha_tpu.models.config import tiny_config as jax_tiny_config
-from matcha_tpu.models.flow_matching import seeded_synthesis_noise
 from matcha_tpu.models.matcha import init_params
 from matcha_tpu.vocoder.vocos import VocosConfig as JaxVocosConfig
 from matcha_tpu.vocoder.vocos import init_vocos_params
@@ -41,8 +39,6 @@ def pair():
         vocos_params_from_jax(vparams, VocosConfig(**WIDTHS)), VocosConfig(**WIDTHS),
         device="cpu", **BUCKETS,
     )
-    rows = port.noise_row.shape[0]
-    port.noise_row = torch.tensor(np.asarray(seeded_synthesis_noise(1, rows, 8))[0])
     return ref, port
 
 

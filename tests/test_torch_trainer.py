@@ -2,9 +2,9 @@
 metrics.jsonl + checkpoint → served by load_synthesizer → resume.
 
 The checkpoint's ``params`` tree is the flax layout: the JAX package's
-model applies it as is.  (``matcha_tpu.train.checkpoint.load_checkpoint``
-reads orbax directories only, so it reads neither this flat format nor its
-own flat fallback.)
+model applies it as is, and its optimizer state sits under the JAX
+trainer's optax key paths (``tests/test_torch_checkpoint_crossing.py``
+resumes it in the JAX trainer).
 """
 
 import json
@@ -19,6 +19,8 @@ from matcha_tpu.models.matcha import MatchaTTS as JaxMatchaTTS
 from matcha_tpu_torch.checkpoint import load_checkpoint, load_synthesizer
 from matcha_tpu_torch.data.dataset import TextMelDataset
 from matcha_tpu_torch.models.config import tiny_config
+from matcha_tpu_torch.parallel import mesh
+from matcha_tpu_torch.train.checkpoint import optax_state_parts
 from matcha_tpu_torch.train.optim import OptimizerConfig
 from matcha_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -78,7 +80,9 @@ def test_fit_writes_metrics_and_a_checkpoint(run1):
     assert 1 <= len(ckpts) <= 2
     tree, cfg = load_checkpoint(ckpts[-1])
     assert int(tree["step"]) == 3 and cfg.to_dict() == CFG.to_dict()
-    assert set(tree["opt_state"]) >= {"mu", "nu", "count"}
+    adam, finite, _ = optax_state_parts(tree["opt_state"])
+    assert set(adam) >= {"mu", "nu", "count"} and set(finite) >= {"notfinite_count", "last_finite"}
+    assert "inner_state" in tree["opt_state"]  # the JAX trainer's layout
 
 
 def test_checkpoint_is_served_and_read_by_the_jax_model(run1):
@@ -118,3 +122,21 @@ def test_resume_continues_the_step_count(corpus, run1):
 def test_tensor_parallel_raises(corpus):
     with pytest.raises(NotImplementedError):
         make_trainer(corpus, "run3", tensor_parallel=2)
+
+
+def test_samplers_are_the_data_module_s(corpus):
+    trainer = make_trainer(corpus, "run4")
+    try:
+        assert trainer.sampler is trainer.dm.train_sampler
+        assert trainer.valid_sampler is trainer.dm.valid_sampler
+        assert trainer.sampler.batch_multiple == 1 and not trainer.data_parallel
+    finally:
+        trainer.close()
+
+
+def test_context_manager_closes_the_sinks(corpus):
+    with make_trainer(corpus, "run5") as trainer:
+        trainer.fit(max_steps=1)
+        jsonl = trainer.logger.jsonl
+        assert not jsonl.closed
+    assert jsonl.closed and not mesh.active()
