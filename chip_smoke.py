@@ -73,10 +73,31 @@ JSON line:
  21. fanout   the synthesizer fanned out over two replicas on this card
               against the single one: B=16 fused, a padded 3-request batch,
               one request; wall times
+ 22. tp_train  tensor parallelism at configs/experiment/v20-production.yaml's
+              widths (decoder 384 = 6 x 64, encoder 6 x 48), dropout 0: one
+              process, then two spawned ranks dp 1 x tp 2 over gloo on this
+              card, B=62 x 512: in bf16 3 steps (losses and gathered
+              parameters against one process and beside its spread against
+              itself; step time, peak memory and launches per rank, K1 at 3
+              heads), in fp32 one step; the tp=2 checkpoint reloaded at tp=1
+ 23. conformer  block_type="conformer" at MatchaConfig() widths: B=1 fused
+              p50 and B=16 RTF (K1 exactly 100 times a request), 3 training
+              steps at B=62 x 512 with dropout on
+ 24. remat    the production training step with and without remat: loss
+              equal, gradients within the step's own run-to-run noise, peak
+              memory and step time of each, K1 twice per decoder block
+ 25. norm_stats  B=1 synthesis with bf16 and fp32 norm statistics: mel max
+              |Δ| and fused p50 of each
+ 26. durations  the segment DP (maximum_path_durations) against K2+K3's
+              durations at (62, 224, 1024); torch.cummax's tie rule; times
+ (3b.) kernel_time at the new signatures: K1 with and without lse and K1b
+              at the encoder's training shape (62,6,224,48), v20's
+              (62,6,512,64) and the tp=2 halves (62,3,512,64), (62,3,224,48),
+              each checked against its plain version, beside SDPA
 
 The launch counters are set to 0 just before each main path (phases 4-5,
-synthesis; phase 8, training; each of phases 13-17, 19 and 21) and read
-just after: the kernels line reports those launches, by path.  The last
+synthesis; phase 8, training; each of phases 13-17, 19, 21 and 22-25) and
+read just after: the kernels line reports those launches, by path.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -302,11 +323,13 @@ def kernels_ext():
     return kernels()
 
 
-def production_synthesizer(compute_dtype: str, attention_backend: str = "auto", seed: int = 0, **kwargs):
+def production_synthesizer(compute_dtype: str, attention_backend: str = "auto", seed: int = 0,
+                           decoder: dict | None = None, **kwargs):
     """Full-width MatchaConfig + VocosConfig with random weights from a seeded
-    generator.  The duration head is set to a constant 4 fine frames per
-    token (log(2 + 4)): random log-durations collapse to the 1-frame floor,
-    which would make every request far shorter than speech."""
+    generator (``decoder``: DecoderConfig fields to change).  The duration
+    head is set to a constant 4 fine frames per token (log(2 + 4)): random
+    log-durations collapse to the 1-frame floor, which would make every
+    request far shorter than speech."""
     import dataclasses
 
     from matcha_tpu_torch.inference import MatchaSynthesizer
@@ -316,6 +339,8 @@ def production_synthesizer(compute_dtype: str, attention_backend: str = "auto", 
 
     cfg = dataclasses.replace(MatchaConfig(), compute_dtype=compute_dtype,
                               attention_backend=attention_backend)
+    if decoder:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, **decoder))
     vcfg = VocosConfig(compute_dtype=compute_dtype)
     gen = torch.Generator().manual_seed(seed)
     params = init_params(cfg, gen)
@@ -1680,18 +1705,21 @@ def no_dropout(cfg):
         decoder=dataclasses.replace(cfg.decoder, dropout=0.0))
 
 
-def dp_run(tmp: str, filelist: str, name: str, cfg, dev, use_mesh: bool, steps: int = 3) -> dict:
+def dp_run(tmp: str, filelist: str, name: str, cfg, dev, use_mesh: bool, steps: int = 3,
+           tensor_parallel: int = 1) -> dict:
     """A Trainer over ``filelist`` for ``steps`` steps (data-parallel when a
-    process group runs and ``use_mesh``): per-step losses, wall times and
-    launches, peak memory, launch signatures, the final parameters on the
-    host."""
+    process group runs and ``use_mesh``; tensor-parallel over ``tensor_parallel``
+    ranks): per-step losses, wall times and launches, peak memory, launch
+    signatures, the final parameters on the host (whole tensors, gathered
+    over the tensor-parallel group)."""
     from matcha_tpu_torch.data.dataset import TextMelDataset
     from matcha_tpu_torch.train.optim import OptimizerConfig
     from matcha_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     counters = train_counters()
     tcfg = TrainerConfig(output_dir=os.path.join(tmp, name), max_epochs=steps, log_every_n_steps=1,
-                         checkpoint_every_n_epochs=100, seed=1234, use_mesh=use_mesh)
+                         checkpoint_every_n_epochs=100, seed=1234, use_mesh=use_mesh,
+                         tensor_parallel=tensor_parallel)
     trainer = Trainer(cfg, OptimizerConfig(**DP_OPT), tcfg,
                       TextMelDataset(filelist, os.path.join(tmp, "mels")),
                       max_frames_per_batch=32000, len_bucket=32, device=dev)
@@ -1717,14 +1745,16 @@ def dp_run(tmp: str, filelist: str, name: str, cfg, dev, use_mesh: bool, steps: 
     try:
         state = trainer.fit(max_steps=steps)
         world, rank = trainer.world, trainer.rank
+        peak = torch.cuda.max_memory_allocated() / 2**30 if torch.device(dev).type == "cuda" else None
+        launches = {n: c.launches for n, c in counters.items()}
+        local_mib = sum(p.numel() * 4 for p in state.params.values()) / 2**20
+        whole, _ = trainer.steps.whole_state(state)
     finally:
         trainer.close()
-    return {"world": world, "rank": rank, "steps": steps_out,
-            "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
-                                if torch.device(dev).type == "cuda" else None),
-            "launches": {n: c.launches for n, c in counters.items()},
-            "signatures": {n: c.signatures for n, c in counters.items()},
-            "params": {n: p.detach().cpu() for n, p in state.params.items()}}
+    return {"world": world, "rank": rank, "steps": steps_out, "peak_memory_gib": peak,
+            "launches": launches, "signatures": {n: c.signatures for n, c in counters.items()},
+            "param_mib_on_rank": local_mib, "out_dir": tcfg.output_dir,
+            "params": {n: p.detach().cpu() for n, p in whole.items()}}
 
 
 def dp_worker(rank: int, world: int, store: str, tmp: str, filelist: str, cfg, dev: str) -> None:
@@ -1894,6 +1924,404 @@ def phase_fanout(synth, counters, dev: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism, the decoder's switches (Conformer, remat, bf16 norm
+# statistics) and the segment DP
+# ---------------------------------------------------------------------------
+
+def v20_train_config(dropout: bool = True):
+    """configs/experiment/v20-production.yaml's model section over bf16.yaml,
+    built from the dataclasses (the card's machine may lack PyYAML):
+    decoder 384 = 6 x 64, encoder 6 x 48 heads."""
+    import dataclasses
+
+    from matcha_tpu_torch.models.config import MatchaConfig
+
+    base = MatchaConfig()
+    cfg = dataclasses.replace(
+        base, compute_dtype="bfloat16", spk_emb_dim=96, prior_loss=True, prior_loss_threshold=0.15,
+        duration_loss_threshold=0.3,
+        encoder=dataclasses.replace(base.encoder, n_channels=192, filter_channels=1152, n_heads=6, n_layers=4,
+                                    kernel_size=5, p_dropout=0.05, prenet_kernel_size=3),
+        duration_predictor=dataclasses.replace(base.duration_predictor, filter_channels=96, kernel_size=5,
+                                               n_layers=4, p_dropout=0.05),
+        decoder=dataclasses.replace(base.decoder, channels=(384, 384), attention_head_dim=64, num_heads=6,
+                                    dropout=0.05))
+    return cfg if dropout else no_dropout(cfg)
+
+
+def param_diff(a: dict, b: dict) -> tuple[float, str]:
+    """max |a − b| over all parameters, and where."""
+    errs = {n: float((a[n].float() - b[n].float()).abs().max()) for n in a}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def tp_worker(rank: int, store: str, tmp: str, filelist: str, runs, dev: str) -> None:
+    """One rank of the dp 1 x tp 2 runs: gloo, both ranks on the same card;
+    ``runs`` = [(name, config, steps)], each a Trainer of its own."""
+    sys.path.insert(0, ROOT)
+    from matcha_tpu_torch.parallel import mesh
+
+    mesh.init_data_parallel(dev, backend="gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    try:
+        res = {name: dp_run(tmp, filelist, f"tp_{name}", cfg, dev, use_mesh=True, steps=steps, tensor_parallel=2)
+               for name, cfg, steps in runs}
+    finally:
+        mesh.destroy()
+    torch.save(res, os.path.join(tmp, f"tp_rank{rank}.pt"))
+
+
+def phase_tp_train(tmp: str, dev: str = "cuda") -> dict:
+    """Tensor-parallel training at the production operating point (v20
+    widths, dropout 0, Adam eps 1e-3) over the 62 utterances of bucket
+    512: one process against two spawned ranks dp 1 x tp 2 over gloo on
+    this card.
+
+    bf16, 3 steps: first-step loss 1e-5, later losses 1e-2 (dp_train's
+    bounds), parameters 1e-5 after the first step; after the third, the
+    parameters within 1e-5 plus the spread of the single process against
+    itself (two runs here: the alignment search is discrete, and the
+    backward's atomic sums move later steps' inputs).  fp32, 1 step: loss
+    and parameters 1e-5, where rounding cannot move the alignment.  The
+    tp=2 checkpoint reloads at tp=1 bit-equal."""
+    import dataclasses
+
+    import torch.multiprocessing as mp
+
+    from matcha_tpu_torch.checkpoint import load_checkpoint
+    from matcha_tpu_torch.train.checkpoint import train_state_from_tree
+
+    cfg = v20_train_config(dropout=False)
+    fp32 = dataclasses.replace(cfg, compute_dtype="float32")
+    runs = [("bf16", cfg, 3), ("bf16_first", cfg, 1), ("fp32_first", fp32, 1)]
+    filelist = short_corpus(tmp)
+    single = {name: dp_run(tmp, filelist, f"tp_single_{name}", c, dev, use_mesh=False, steps=n)
+              for name, c, n in runs}
+    again = dp_run(tmp, filelist, "tp_single_again", cfg, dev, use_mesh=False, steps=3)
+    t0 = time.perf_counter()
+    mp.start_processes(tp_worker, args=(os.path.join(tmp, "tp_store"), tmp, filelist, runs, dev), nprocs=2,
+                       join=True, start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt")) for r in range(2)]
+    for run in (*single.values(), *(r[name] for r in ranks for name, _, _ in runs)):
+        for n, sigs in run["signatures"].items():
+            LAUNCHED.setdefault(n, set()).update(sigs)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    tp, one = ranks[0]["bf16"], single["bf16"]
+    losses = [(r["loss"], s["loss"]) for r, s in zip(tp["steps"], one["steps"])]
+    err = {"first_loss_rel_err": rel(*losses[0]), "loss_rel_err": max(rel(a, b) for a, b in losses),
+           "first_step_param_max_abs_err": param_diff(ranks[0]["bf16_first"]["params"],
+                                                      single["bf16_first"]["params"]),
+           "param_max_abs_err": param_diff(tp["params"], one["params"]),
+           "single_vs_itself_param_max_abs_err": param_diff(again["params"], one["params"]),
+           "fp32_first_loss_rel_err": rel(ranks[0]["fp32_first"]["steps"][0]["loss"],
+                                          single["fp32_first"]["steps"][0]["loss"]),
+           "fp32_first_step_param_max_abs_err": param_diff(ranks[0]["fp32_first"]["params"],
+                                                           single["fp32_first"]["params"])}
+    ranks_equal = all(torch.equal(ranks[0][name]["params"][n], ranks[1][name]["params"][n])
+                      for name, _, _ in runs for n in ranks[0][name]["params"])
+
+    # the tp=2 checkpoint (rank 0, whole tensors) reloads at tp=1
+    (ckpt,) = sorted(glob.glob(os.path.join(tp["out_dir"], "checkpoints", "epoch_*")))
+    tree, ckpt_cfg = load_checkpoint(ckpt)
+    params, _, step, _ = train_state_from_tree(tree, ckpt_cfg, "cpu")
+    reload_equal = ckpt_cfg == cfg and step == 3 and all(
+        torch.equal(params[n].detach(), tp["params"][n]) for n in params)
+
+    def summary(run):
+        return {"rank": run["rank"], "losses": [s["loss"] for s in run["steps"]],
+                "step_s": [s["seconds"] for s in run["steps"]], "peak_memory_gib": run["peak_memory_gib"],
+                "param_mib_on_rank": run["param_mib_on_rank"], "launches_per_step": run["steps"][-1]["launches"],
+                "signatures": {n: [list(map(str, x)) for x in v] for n, v in run["signatures"].items()}}
+
+    out = {"phase": "tp_train", "config": "v20-production, dropout 0", "adam_eps": DP_OPT["eps"],
+           "decoder": {"channels": list(cfg.decoder.channels), "heads": cfg.decoder.num_heads,
+                       "head_dim": cfg.decoder.attention_head_dim},
+           "encoder_heads": cfg.encoder.n_heads, "single_bf16": summary(one), "single_bf16_again": summary(again),
+           "tp2_gloo_bf16": [summary(r["bf16"]) for r in ranks], "spawn_s": spawn_s,
+           "tp2_vs_single": err, "ranks_bit_identical": ranks_equal,
+           "checkpoint_reloads_at_tp1_bit_equal": reload_equal,
+           "tol": {"first_loss": 1e-5, "loss": 1e-2, "param": 1e-5,
+                   "param_after_3": "1e-5 + single_vs_itself_param_max_abs_err"}}
+    emit(out)
+    want = step_launches(cfg)
+    for run in (one, again, *(r["bf16"] for r in ranks)):
+        check(all(s["launches"] == want for s in run["steps"]), f"a step launched other than {want}")
+    for r in ranks:
+        heads = {sig[0][1] for sig in r["bf16"]["signatures"]["masked_attention_fwd"]}
+        check(heads == {cfg.decoder.num_heads // 2}, f"a tp rank launched K1 at heads {heads}, expected 3")
+    check(ranks_equal, "the two tp ranks' gathered parameters differ")
+    check(reload_equal, "the tp=2 checkpoint does not reload bit-equal at tp=1")
+    check(err["first_loss_rel_err"] <= 1e-5 and err["loss_rel_err"] <= 1e-2, f"tp=2 bf16 losses: {err}")
+    check(err["first_step_param_max_abs_err"][0] <= 1e-5, f"tp=2 bf16 first-step parameters: {err}")
+    check(err["param_max_abs_err"][0] <= 1e-5 + err["single_vs_itself_param_max_abs_err"][0],
+          f"tp=2 bf16 parameters after 3 steps: {err}")
+    check(err["fp32_first_loss_rel_err"] <= 1e-5 and err["fp32_first_step_param_max_abs_err"][0] <= 1e-5,
+          f"tp=2 fp32: {err}")
+    out["launches"] = {n: sum(r["bf16"]["launches"][n] for r in ranks) for n in tp["launches"]}
+    return out
+
+
+def timed_steps(ts, state, batch, counters, steps: int, seed: int = 0) -> list[dict]:
+    """``steps`` train steps, each synchronized and timed, with its launches."""
+    records = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        before = {n: c.launches for n, c in counters.items()}
+        t0 = time.perf_counter()
+        state, m = ts.train_step(state, batch, seed)
+        torch.cuda.synchronize()
+        records.append({"seconds": time.perf_counter() - t0,
+                        "launches": {n: c.launches - before[n] for n, c in counters.items()},
+                        **{k: float(v) for k, v in m.items()}})
+    return records
+
+
+def phase_conformer(tmp: str, counters) -> dict:
+    """The Conformer decoder at MatchaConfig() widths, bf16: B=1 fused and
+    B=16 synthesis (K1 exactly 100 times a request), then 3 training steps
+    of B=62 x 512 with dropout on."""
+    import dataclasses
+
+    from matcha_tpu_torch.train.optim import OptimizerConfig
+    from matcha_tpu_torch.train.step import TrainStep
+
+    synth = production_synthesizer("bfloat16", decoder={"block_type": "conformer"})
+    check(synth.cfg.decoder.block_type == "conformer", "the synthesizer is not a Conformer one")
+    for c in counters.values():
+        c.reset()
+    ids = ids_of(200, 1)
+    synth.synthesise_ids(ids, scale_correction=1.0, fused=True)  # first call
+    lat, per_request = [], []
+    for _ in range(10):
+        before = counters["masked_attention_fwd"].launches
+        r = synth.synthesise_ids(ids, scale_correction=1.0, fused=True)
+        per_request.append(counters["masked_attention_fwd"].launches - before)
+        lat.append(r.latency_s)
+        check_wav(r.wav, len(ids), "Conformer B=1 fused")
+    lists = [ids_of(180 + 4 * i, 100 + i) for i in range(16)]
+    mixes = [[(15, 1.0)]] * 16
+    rtfs = []
+    for _ in range(3):
+        res = synth.synthesise_batch(lists, voice_mixes=mixes, fused=True)
+        for ids_k, rk in zip(lists, res):
+            check_wav(rk.wav, len(ids_k), "Conformer B=16 fused")
+        rtfs.append(res[0].rtf)
+    synthesis = read_counts(counters)
+    del synth
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(bf16_train_config(), decoder=dataclasses.replace(
+        bf16_train_config().decoder, block_type="conformer"))
+    ts = TrainStep(cfg, OptimizerConfig(), device="cuda")
+    state = ts.init_state(generator=torch.Generator().manual_seed(13))
+    batch = fixed_batch(tmp, cfg, 62)
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    steps = timed_steps(ts, state, batch, counters, 3)
+    training = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"phase": "conformer", "compute_dtype": "bfloat16", "widths": "MatchaConfig()",
+           "b1_fused_latency_ms_p50": statistics.median(lat) * 1e3, "b1_fused_latency_ms": [x * 1e3 for x in lat],
+           "b16_fused_rtf_median": statistics.median(rtfs), "b16_fused_rtf": rtfs,
+           "k1_per_request": per_request, "expected_k1_per_request": request_launches(cfg),
+           "train_batch": list(batch.y.shape[:2]), "train_dropout": cfg.decoder.dropout,
+           "train_losses": [s["loss"] for s in steps], "train_step_s": [s["seconds"] for s in steps],
+           "train_peak_memory_gib": peak, "train_launches_per_step": steps[-1]["launches"],
+           "launches": {"synthesis": synthesis, "training": training}}
+    emit(out)
+    check(all(n == request_launches(cfg) == 100 for n in per_request),
+          f"Conformer requests launched K1 {per_request} times, expected 100 each")
+    check(all(math.isfinite(s[k]) for s in steps for k in ("loss", "grad_norm")), "non-finite Conformer losses")
+    want = step_launches(cfg)
+    check(all(s["launches"] == want for s in steps), f"a Conformer step launched other than {want}")
+    del ts, state
+    torch.cuda.empty_cache()
+    out["launches"] = {n: synthesis[n] + training[n] for n in synthesis}
+    return out
+
+
+def phase_remat(tmp: str, counters) -> dict:
+    """The production training step (bf16, dropout on, B=62 x 512) with and
+    without remat, on one batch from the same weights and seeds: loss
+    equal, gradients within the non-remat step's run-to-run noise, peak
+    memory and step time of each, K1 twice per decoder block with remat."""
+    import dataclasses
+
+    from matcha_tpu_torch.models.matcha import init_params
+    from matcha_tpu_torch.train.optim import OptimizerConfig
+    from matcha_tpu_torch.train.step import TrainStep
+
+    base = bf16_train_config()
+    params = init_params(base, torch.Generator().manual_seed(17))
+    batch = fixed_batch(tmp, base, 62)
+    runs = {}
+    for name, remat in (("plain_a", False), ("plain_b", False), ("remat", True)):
+        cfg = dataclasses.replace(base, decoder=dataclasses.replace(base.decoder, remat=remat))
+        ts = TrainStep(cfg, OptimizerConfig(), device="cuda")
+        seen = {}
+        real = ts.opt.update
+
+        def spy(p, g, st, seen=seen, real=real):
+            seen.update({n: x.detach().clone() for n, x in g.items()})
+            real(p, g, st)
+
+        ts.opt.update = spy
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "remat":
+            for c in counters.values():
+                c.reset()
+        first = timed_steps(ts, ts.init_state(params), batch, counters, 1)
+        grads = dict(seen)
+        more = timed_steps(ts, ts.init_state(params), batch, counters, 2)
+        if name == "remat":
+            path = read_counts(counters)
+        runs[name] = {"loss": first[0]["loss"], "grads": grads, "peak_memory_gib":
+                      torch.cuda.max_memory_allocated() / 2**30,
+                      "step_s": [s["seconds"] for s in first + more], "launches": first[0]["launches"]}
+        del ts, seen
+    noise_err, noise_worst = param_diff(runs["plain_b"]["grads"], runs["plain_a"]["grads"])
+    remat_err, remat_worst = param_diff(runs["remat"]["grads"], runs["plain_a"]["grads"])
+    plain_launch, remat_launch = runs["plain_a"]["launches"], runs["remat"]["launches"]
+    dec = base.decoder
+    blocks = dec.n_blocks * (2 * len(dec.channels) + dec.num_mid_blocks)
+    want = dict(plain_launch, masked_attention_fwd=plain_launch["masked_attention_fwd"] + blocks)
+    out = {"phase": "remat", "compute_dtype": "bfloat16", "batch": list(batch.y.shape[:2]),
+           "dropout": base.decoder.dropout,
+           "loss": {n: r["loss"] for n, r in runs.items()},
+           "grad_max_abs_diff": {"plain_b_vs_plain_a": noise_err, "remat_vs_plain_a": remat_err},
+           "grad_worst": {"plain_b_vs_plain_a": noise_worst, "remat_vs_plain_a": remat_worst},
+           "peak_memory_gib": {n: r["peak_memory_gib"] for n, r in runs.items()},
+           "step_s": {n: r["step_s"] for n, r in runs.items()},
+           "launches_per_step": {"plain": plain_launch, "remat": remat_launch},
+           "decoder_blocks": blocks, "rule": "remat gradient diff <= 2 x the plain step's diff against itself"}
+    emit(out)
+    check(runs["remat"]["loss"] == runs["plain_a"]["loss"] == runs["plain_b"]["loss"],
+          f"losses differ: {out['loss']}")
+    check(remat_err <= 2 * noise_err if noise_err > 0 else remat_err == 0.0,
+          f"remat gradients {remat_err} ({remat_worst}) beyond the noise {noise_err}")
+    check(remat_launch == want, f"a remat step launched {remat_launch}, expected {want}")
+    out["launches"] = path
+    return out
+
+
+def phase_norm_stats() -> dict:
+    """B=1 synthesis with the decoder's norm statistics in bf16 and in
+    fp32: max |Δ| of the mel, fused p50 of each."""
+    import numpy as np
+
+    ids = ids_of(200, 1)
+    res = {}
+    for name, on in (("fp32_stats", False), ("bf16_stats", True)):
+        synth = production_synthesizer("bfloat16", decoder={"bf16_norm_stats": on})
+        mel = synth.synthesise_ids(ids, scale_correction=1.0, debug=True).mel
+        synth.synthesise_ids(ids, scale_correction=1.0, fused=True)
+        lat = [synth.synthesise_ids(ids, scale_correction=1.0, fused=True).latency_s for _ in range(10)]
+        res[name] = {"mel": mel, "p50_ms": statistics.median(lat) * 1e3}
+        del synth
+        torch.cuda.empty_cache()
+    a, b = res["fp32_stats"]["mel"], res["bf16_stats"]["mel"]
+    check(a.shape == b.shape and np.isfinite(a).all() and np.isfinite(b).all(), "norm_stats mels")
+    out = {"phase": "norm_stats", "compute_dtype": "bfloat16",
+           "mel_max_abs_diff": float(np.abs(a - b).max()), "mel_abs_max": float(np.abs(a).max()),
+           "b1_fused_p50_ms": {n: r["p50_ms"] for n, r in res.items()}}
+    emit(out)
+    check(out["mel_max_abs_diff"] > 0, "bf16 statistics left the mel unchanged: the switch is a no-op")
+    return out
+
+
+def phase_durations() -> dict:
+    """The segment DP against K2+K3 at (62, 224, 1024): values on a 2^-12
+    grid, so every sum either DP forms is exact in fp32 and the two agree
+    unless two paths tie exactly; durations must be equal.  torch.cummax's
+    tie rule (last index) on the card; times."""
+    from matcha_tpu_torch.ops import mas
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, tx, ty = 62, 224, 1024
+    value = torch.round(torch.randn((b, tx, ty), generator=gen, device="cuda") * 4096) / 4096
+    x_len = torch.randint(150, tx + 1, (b,), generator=gen, device="cuda")
+    y_len = torch.minimum(4 * x_len + torch.randint(0, 200, (b,), generator=gen, device="cuda"),
+                          torch.full_like(x_len, ty))
+    seg = mas.maximum_path_durations(value, x_len, y_len)
+    idx = mas.maximum_path_indices_kernel(value, x_len, y_len)
+    ref = mas.durations_from_indices(idx, tx).to(torch.int32)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(seg, ref))
+    tie_idx = torch.cummax(torch.tensor([[1.0, 1.0, 0.5, 1.0]], device="cuda"), dim=1).indices
+    last_on_ties = tie_idx.tolist() == [[0, 1, 1, 3]]
+    ms = cuda_ms(lambda: mas.maximum_path_durations(value, x_len, y_len), reps=5, per_rep=1, warmup=1)
+    k23_ms = cuda_ms(lambda: mas.durations_from_indices(mas.maximum_path_indices_kernel(value, x_len, y_len), tx))
+    nbytes = b * tx * ty * 4 + b * tx * 4
+    out = {"phase": "durations", "shape": [b, tx, ty], "values": "N(0,1) on a 2^-12 grid",
+           "equal_to_k2_k3": equal, "mismatches": int((seg != ref).sum()),
+           "frames_partitioned": bool(torch.equal(seg.sum(1), y_len.to(torch.int32))),
+           "cummax_last_index_on_ties": last_on_ties, "ms": ms, "k2_k3_and_durations_ms": k23_ms,
+           "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3}
+    emit(out)
+    check(equal and out["frames_partitioned"], f"segment DP durations differ from K2+K3 ({out['mismatches']})")
+    check(last_on_ties, f"torch.cummax on the card took {tie_idx.tolist()} on ties, not the last index")
+    return out
+
+
+NEW_SIGNATURE_SHAPES = [(62, 6, 224, 48), (62, 6, 512, 64), (62, 3, 512, 64), (62, 3, 224, 48)]
+
+
+def phase_new_signatures_time() -> dict:
+    """K1 (with and without lse) and K1b at the encoder's training shape and
+    at the new paths' signatures (v20 widths, and their tp=2 halves),
+    against the plain versions, timed beside SDPA's forward and backward."""
+    import torch.nn.functional as F
+
+    from matcha_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    timed = {}
+    for shape in NEW_SIGNATURE_SHAPES:
+        check_k1(shape, torch.bfloat16, gen)
+        check_k1_lse(shape, torch.bfloat16, gen)
+        check_bwd_alone(shape, torch.bfloat16, gen)
+        b, h, t, d = shape
+        q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(4))
+        valid = torch.ones((b, t), device="cuda")
+        u8 = valid.to(torch.uint8)
+        keep = valid[:, None, None, :] > 0
+        entry = {}
+        for with_lse in (False, True):
+            bound = attention_bound_ms(b, h, t, d, torch.bfloat16, t, with_lse)
+            entry["fwd_lse" if with_lse else "fwd"] = {
+                "ms": cuda_ms(lambda: att._launch_fwd(q, k, v, u8, with_lse)), "bound_ms": bound[0],
+                "bound_by": bound[1]}
+        entry["fwd_plain_ms"] = cuda_ms(lambda: att.masked_self_attention_plain(q, k, v, valid))
+        entry["sdpa_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
+        out, lse = att._launch_fwd(q, k, v, u8, with_lse=True)
+        delta = (dout.float() * out.float()).sum(-1)
+        for name, fn, products, tensors in (
+                ("bwd_dkv", lambda: att.masked_attention_bwd_dkv(q, k, v, dout, lse, delta, u8), 4, 6),
+                ("bwd_dq", lambda: att.masked_attention_bwd_dq(q, k, v, dout, lse, delta, u8), 3, 5)):
+            bound = attention_bwd_bound_ms(b, h, t, d, torch.bfloat16, t, products, tensors)
+            entry[name] = {"ms": cuda_ms(fn), "bound_ms": bound[0], "bound_by": bound[1]}
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        plain_out = att.masked_self_attention_plain(qg, kg, vg, valid)
+        entry["bwd_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(plain_out, (qg, kg, vg), dout,
+                                                                    retain_graph=True))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+        entry["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout,
+                                                                   retain_graph=True))
+        timed[shape] = entry
+        emit({"phase": "kernel_time", "kernel": "masked_attention (new signatures)", "shape": list(shape),
+              "dtype": "bfloat16", **entry})
+        del plain_out, lib_out
+    return timed
+
+
+
 def phase_path_signatures() -> dict:
     """Every kernel against its plain version at every signature a main
     path launched it at (``LAUNCHED``): random inputs at that shape and
@@ -1944,6 +2372,7 @@ def main() -> int:
     k1 = phase_kernels()
     kt = phase_training_kernels()
     bwd_alone = phase_bwd_kernels()
+    new_sigs = phase_new_signatures_time()
     phase_kernel_attributes()
     counters = train_counters()
 
@@ -1988,6 +2417,17 @@ def main() -> int:
         phase_checkpoint_crossing(tmp)
         tools["dp_train"] = phase_dp_train(tmp)["launches"]
 
+        # tensor parallelism at the production operating point (the spawned
+        # ranks count their own launches), then the decoder's switches
+        tools["tp_train"] = phase_tp_train(tmp)["launches"]
+        tools["conformer"] = phase_conformer(tmp, counters)["launches"]
+        tools["remat"] = phase_remat(tmp, counters)["launches"]
+    for c in counters.values():
+        c.reset()
+    phase_norm_stats()
+    tools["norm_stats"] = read_counts(counters)
+    phase_durations()
+
     # seeded noise and the serving fan-out (it sets the counts to 0 itself)
     synth = production_synthesizer("bfloat16")
     phase_seeded_noise(synth)
@@ -2011,7 +2451,10 @@ def main() -> int:
                      total["masked_attention_fwd"], max(k1["max_abs_err"], on_path["masked_attention_fwd"]),
                      prod, shape=[16, 5, 512, 64], dtype="bfloat16",
                      lse_max_abs_err=max(k1["lse_max_abs_err"], on_path["lse"]),
-                     launches_by_path=by_path["masked_attention_fwd"]),
+                     launches_by_path=by_path["masked_attention_fwd"],
+                     ms_at_new_signatures={str(list(sh)): {"no_lse": e["fwd"]["ms"], "lse": e["fwd_lse"]["ms"],
+                                                           "sdpa": e["sdpa_fwd_ms"]}
+                                           for sh, e in new_sigs.items()}),
         kernel_entry("masked_attention_bwd_dq", "masked_attention_bwd.cu",
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
                      total["masked_attention_bwd_dq"], bwd_err,
@@ -2019,7 +2462,8 @@ def main() -> int:
                           library_ms=bwd["library_ms"]),
                      shape=[62, 5, 512, 64], dtype="bfloat16", error="max |err| / max |ref|",
                      plain_and_library="whole backward (dq, dk, dv)",
-                     launches_by_path=by_path["masked_attention_bwd_dq"]),
+                     launches_by_path=by_path["masked_attention_bwd_dq"],
+                     ms_at_new_signatures={str(list(sh)): e["bwd_dq"]["ms"] for sh, e in new_sigs.items()}),
         kernel_entry("masked_attention_bwd_dkv", "masked_attention_bwd.cu",
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
                      total["masked_attention_bwd_dkv"], bwd_err,
@@ -2027,7 +2471,8 @@ def main() -> int:
                           library_ms=bwd["library_ms"]),
                      shape=[62, 5, 512, 64], dtype="bfloat16", error="max |err| / max |ref|",
                      plain_and_library="whole backward (dq, dk, dv)",
-                     launches_by_path=by_path["masked_attention_bwd_dkv"]),
+                     launches_by_path=by_path["masked_attention_bwd_dkv"],
+                     ms_at_new_signatures={str(list(sh)): e["bwd_dkv"]["ms"] for sh, e in new_sigs.items()}),
         kernel_entry("mas", "mas.cu", "matcha_tpu/ops/mas_pallas.py:179,189",
                      total["mas"], 0.0, mas_t, shape=[62, 224, 1024], dtype="float32",
                      error="indices equal to the plain version", launches_by_path=by_path["mas"]),

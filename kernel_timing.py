@@ -10,9 +10,11 @@ file), builds its kernels, and times, with CUDA events after a spin kernel
   request's shapes, the B=16 batch's and, writing its log-sum-exp as the
   training step does, the training step's, beside SDPA's forward on the
   same inputs; where the checkout's wrapper takes a ``layout``, each bf16
-  layout on its own as well;
-- the two backward kernels (K1b) at the training shapes, beside SDPA's
-  backward (dq, dk, dv);
+  layout on its own as well; the encoder's training shape (62,6,224,48),
+  the v20 decoder's (62,6,512,64) and their tensor-parallel halves
+  (62,3,512,64), (62,3,224,48), each with and without the log-sum-exp;
+- the two backward kernels (K1b) at the training shapes, those four
+  included, beside SDPA's backward (dq, dk, dv);
 - monotonic alignment search (K2+K3) at the two training buckets.
 
 Prints one JSON line.  Needs a CUDA card.  To compare two checkouts, run
@@ -32,10 +34,12 @@ import torch
 
 from chip_smoke import cuda_ms
 
+NEW_SIGNATURES = [(62, 6, 224, 48), (62, 6, 512, 64), (62, 3, 512, 64), (62, 3, 224, 48)]
 FWD_SHAPES = {"b1": [(1, 6, 256, 48), (1, 5, 512, 64), (1, 5, 256, 64)],
               "b16": [(16, 6, 256, 48), (16, 5, 512, 64), (16, 5, 256, 64)],
-              "train": [(62, 5, 512, 64), (29, 5, 1088, 64)]}
-BWD_SHAPES = [(62, 5, 512, 64), (29, 5, 1088, 64)]
+              "train": [(62, 5, 512, 64), (29, 5, 1088, 64)] + NEW_SIGNATURES,
+              "no_lse": NEW_SIGNATURES}
+BWD_SHAPES = [(62, 5, 512, 64), (29, 5, 1088, 64)] + NEW_SIGNATURES
 MAS_SHAPES = [(62, 224, 1024), (29, 448, 2176)]
 
 

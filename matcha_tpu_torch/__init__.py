@@ -9,6 +9,7 @@ Public API surface:
     matcha_tpu_torch.serving.server  — HTTP server + request batcher
     matcha_tpu_torch.audio.mel       — log-mel frontend
     matcha_tpu_torch.train           — Trainer, checkpoints and surgery
+    matcha_tpu_torch.parallel        — data and tensor parallelism
 
 Entry points: ``python -m matcha_tpu_torch.serving.server``,
 ``python -m matcha_tpu_torch.train``, ``python -m matcha_tpu_torch.cli``,

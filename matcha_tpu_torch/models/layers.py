@@ -7,6 +7,21 @@ on (B, T, C) activations, with parameters stored in the reference torch
 layouts (Conv1d ``(out, in, k)``, Linear ``(out, in)``) so that a state_dict
 keeps the reference Matcha-TTS names (see ``weights.py``).
 
+Norm statistics.  ``LayerNorm(f32_stats=False)`` and
+``GroupNorm.forward(f32_stats=False)`` take their statistics in the dtype
+the norm computes in, as flax's ``force_float32_reductions=False`` does
+(``DecoderConfig.bf16_norm_stats``): x cast to that dtype, E[x] and E[x²]
+summed in fp32 and rounded to it, the variance E[x²] − E[x]² and
+rsqrt(var + eps) in it, then the fp32 scale and bias applied as flax
+casts them.
+
+Tensor parallelism (``parallel/sharding.py``).  A ``Linear`` or ``Conv1d``
+whose ``row_parallel`` is set holds a block of its input channels: it
+forms its partial product in fp32 from operands rounded to its compute
+dtype, sums the partials over the tensor-parallel group, adds its bias
+once after the sum and rounds once, as one GEMM with fp32 accumulation
+does.  ``dropout(..., shard=...)`` draws the full mask and keeps a block.
+
 fp32 islands (the mel head, the log-duration conv, the decoder's final
 projection) are kernel-1 convs, which ``Conv1d`` runs as a matmul: cuBLAS
 computes a float32 matmul in full float32 unless
@@ -22,17 +37,29 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def dropout(x, p: float, generator: torch.Generator | None):
+def dropout(x, p: float, generator: torch.Generator | None, shard: tuple[int, int, int] | None = None):
     """flax ``nn.Dropout``: keep each element with probability 1 − p and
     scale it by 1/(1 − p).  ``generator=None`` is the deterministic pass
     (identity), as is p = 0.  The mask is drawn from ``generator`` on x's
     device; torch's global RNG is never used.
+
+    ``shard = (dim, index, count)``: x is block ``index`` of ``count``
+    equal blocks of a tensor along ``dim``; the mask is drawn for the whole
+    tensor and this block of it kept, so that every holder of a block draws
+    the same numbers from the generator as one process holding all of it.
     """
     if generator is None or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    else:
+        dim, index, count = shard
+        full = list(x.shape)
+        full[dim] *= count
+        keep = torch.rand(full, generator=generator, device=x.device) < 1.0 - p
+        keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -56,15 +83,20 @@ class Conv1d(nn.Conv1d):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride,
                          padding=padding, groups=groups, bias=bias)
         self.compute_dtype = dtype
+        self.row_parallel = None  # a sharding.TPGroup when this conv holds a block of its inputs
 
     def forward(self, x):
         dt = self.compute_dtype
         w = self.weight.to(dt)
         b = None if self.bias is None else self.bias.to(dt)
+        if self.row_parallel is not None:
+            return self.row_parallel.row_output(self._product(x.to(dt).to(wide(dt)), w.to(wide(dt)), None), b)
+        return self._product(x.to(dt), w, b)
+
+    def _product(self, x, w, b):
         if self.kernel_size[0] == 1 and self.stride[0] == 1 and self.groups == 1:
-            return F.linear(x.to(dt), w[:, :, 0], b)
-        y = F.conv1d(x.to(dt).transpose(1, 2), w, b, self.stride, self.padding,
-                     groups=self.groups)
+            return F.linear(x, w[:, :, 0], b)
+        y = F.conv1d(x.transpose(1, 2), w, b, self.stride, self.padding, groups=self.groups)
         return y.transpose(1, 2)
 
 
@@ -93,21 +125,62 @@ class Linear(nn.Linear):
     def __init__(self, in_features, out_features, *, bias=True, dtype=torch.float32):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+        self.row_parallel = None  # a sharding.TPGroup when this layer holds a block of its inputs
 
     def forward(self, x):
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
+        if self.row_parallel is not None:
+            w = wide(dt)
+            return self.row_parallel.row_output(F.linear(x.to(dt).to(w), self.weight.to(dt).to(w)), b)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
-class LayerNorm(nn.LayerNorm):
-    """Last-axis LayerNorm with fp32 statistics, output in ``dtype``."""
+def low_precision_stats(x, dims, stat_dtype, mask=None):
+    """flax ``_compute_stats`` without fp32 promotion: mean and variance of
+    x cast to ``stat_dtype`` over ``dims``, each mean summed in fp32 (float64
+    for float64) and rounded to ``stat_dtype``, var = max(0, E[x²] − E[x]²)
+    in ``stat_dtype``.  ``mask`` (broadcastable, 1 = counted) restricts the
+    statistics to valid positions."""
+    xs = x.to(stat_dtype)
+    acc = wide(stat_dtype)
+    if mask is None:
+        count = 1
+        for d in dims:
+            count *= x.shape[d]
+        mean = xs.to(acc).sum(dim=dims, keepdim=True) / count
+        mean2 = xs.square().to(acc).sum(dim=dims, keepdim=True) / count
+    else:
+        m = mask.to(acc)
+        count = torch.broadcast_to(m, x.shape).sum(dim=dims, keepdim=True)
+        mean = (xs.to(acc) * m).sum(dim=dims, keepdim=True) / count
+        mean2 = (xs.square().to(acc) * m).sum(dim=dims, keepdim=True) / count
+    mean, mean2 = mean.to(stat_dtype), mean2.to(stat_dtype)
+    return mean, torch.clamp(mean2 - mean.square(), min=0.0)
 
-    def __init__(self, dim, *, eps, dtype=torch.float32):
+
+def normalize_low_precision(x, mean, var, eps, scale, bias, out_dtype):
+    """flax ``_normalize`` with ``force_float32_reductions=False``:
+    (x − mean) · (rsqrt(var + eps) · scale) + bias, the statistics in their
+    own dtype and the fp32 scale and bias promoting the product."""
+    mul = torch.rsqrt(var + eps) * scale
+    return ((x - mean) * mul + bias).to(out_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """Last-axis LayerNorm, output in ``dtype``; fp32 statistics, or with
+    ``f32_stats=False`` statistics in ``dtype`` (see the module doc)."""
+
+    def __init__(self, dim, *, eps, dtype=torch.float32, f32_stats=True):
         super().__init__(dim, eps=eps)
         self.compute_dtype = dtype
+        self.f32_stats = f32_stats
 
     def forward(self, x):
+        if not self.f32_stats:
+            mean, var = low_precision_stats(x, (-1,), self.compute_dtype)
+            return normalize_low_precision(x, mean, var, self.eps, self.weight, self.bias,
+                                           self.compute_dtype)
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(self.compute_dtype)
 
@@ -120,9 +193,16 @@ class GroupNorm(nn.GroupNorm):
     variance is E[x²] − E[x]², as flax computes it.
     """
 
-    def forward(self, x, mask=None, out_dtype=torch.float32):
+    def forward(self, x, mask=None, out_dtype=torch.float32, f32_stats=True):
         b, t, c = x.shape
         g = self.num_groups
+        if not f32_stats:  # statistics in out_dtype (see the module doc)
+            xg = x.reshape(b, t, g, c // g)
+            m = None if mask is None else (mask > 0)[:, :, None, None]
+            mean, var = low_precision_stats(xg, (1, 3), out_dtype, m)
+            y = normalize_low_precision(xg, mean, var, self.eps, self.weight.reshape(g, c // g),
+                                        self.bias.reshape(g, c // g), out_dtype)
+            return y.reshape(b, t, c)
         x32 = x.float().reshape(b, t, g, c // g)
         if mask is None:
             m = torch.ones((b, t, 1, 1), dtype=torch.float32, device=x.device)

@@ -117,6 +117,9 @@ class RopeSelfAttention(nn.Module):
         self.rot_dim = int(self.head_dim * 0.5)
         self.dtype = dtype
         self.attn_backend = attn_backend
+        # under tensor parallelism (parallel/sharding.py) n_heads and
+        # channels are this rank's, and conv_o sums over the group
+        self.tp = None
         self.conv_q = Conv1d(channels, channels, 1, dtype=dtype)
         self.conv_k = Conv1d(channels, channels, 1, dtype=dtype)
         self.conv_v = Conv1d(channels, channels, 1, dtype=dtype)
@@ -127,6 +130,9 @@ class RopeSelfAttention(nn.Module):
 
     def forward(self, x, mask, gen=None):
         b, t, _ = x.shape
+        if self.tp is not None:
+            x = self.tp.copy(x)
+        shard = None if self.tp is None else self.tp.shard(1)
 
         def split_heads(y):
             return y.reshape(b, t, self.n_heads, self.head_dim).transpose(1, 2)
@@ -143,7 +149,7 @@ class RopeSelfAttention(nn.Module):
             )
         else:  # training: dropout on the attention probabilities
             out = masked_self_attention_plain(
-                q, k, v, mask, weights_dropout=lambda w: dropout(w, self.p_dropout, gen)
+                q, k, v, mask, weights_dropout=lambda w: dropout(w, self.p_dropout, gen, shard)
             )
         out = out.transpose(1, 2).reshape(b, t, self.channels)
         return self.conv_o(out)
@@ -157,12 +163,17 @@ class ConvFFN(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.p_dropout = p_dropout
+        self.tp = None  # parallel/sharding.py: conv_1's outputs, conv_2's inputs split
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size, dtype=dtype)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size, dtype=dtype)
 
     def forward(self, x, mask, gen=None):
         m = mask[..., None].to(self.dtype)
-        h = dropout(torch.relu(self.conv_1(x * m)), self.p_dropout, gen)
+        x = x * m
+        if self.tp is None:
+            h = dropout(torch.relu(self.conv_1(x)), self.p_dropout, gen)
+        else:
+            h = dropout(torch.relu(self.conv_1(self.tp.copy(x))), self.p_dropout, gen, self.tp.shard(-1))
         return self.conv_2(h * m) * m
 
 

@@ -1,8 +1,9 @@
 """Monotonic alignment search: a hand-written Hopper kernel and its plain version.
 
 Counterpart of ``matcha_tpu/ops/mas.py`` (``maximum_path_numpy``,
-``maximum_path_indices``, ``durations_from_indices``, ``maximum_path`` and
-the backend dispatch of ``maximum_path_indices_auto``).  All fp32: bf16
+``maximum_path_indices``, ``durations_from_indices``, ``maximum_path``,
+the segment DP ``maximum_path_durations`` and the backend dispatch of
+``maximum_path_indices_auto``).  All fp32: bf16
 cannot tell near-tied alignment paths apart.
 
 Semantics (``mas_pallas.py::_fwd_kernel`` / ``_bwd_kernel``): for each mel
@@ -152,3 +153,50 @@ def maximum_path(value, x_lengths, y_lengths, backend: str = "auto"):
     t_x = value.shape[1]
     path = (idx[:, :, None] == torch.arange(t_x, device=idx.device)).float()
     return path.transpose(1, 2)
+
+
+def maximum_path_durations(value, x_lengths, y_lengths):
+    """Batched MAS returning per-token durations, via a segment DP over
+    tokens: (B, Tx, Ty) → (B, Tx) int32 frame counts (0 on padding tokens).
+
+    The JAX package's ``maximum_path_durations`` (``matcha_tpu/ops/mas.py``)
+    in plain torch, on any device; the JAX package computes it outside
+    Pallas, so it has no kernel.  With R[i] the prefix sums of token i's row
+    over frames and e[i][j] the best score with token i ending at frame j,
+
+        e[i] = R[i] + shift1(cummax_j(e[i−1] − R[i]))
+
+    with the cummax's argmax kept for the backtrack over tokens.  On ties
+    ``torch.cummax`` returns the last index, as the JAX combine's
+    ``rm >= lm`` does, so the durations equal the JAX function's bit for
+    bit; the optimum is the frame DP's, and a tie may resolve to another,
+    equally good path than ``maximum_path_indices`` takes.
+    """
+    value = value.float()
+    b, t_x, t_y = value.shape
+    dev = value.device
+    x_len = x_lengths.to(device=dev, dtype=torch.int64)
+    y_len = y_lengths.to(device=dev, dtype=torch.int64)
+
+    prefix = torch.cumsum(value, dim=2)  # R[i, j] = Σ_{t<=j} value[i, t]
+    e = prefix[:, 0, :]  # token 0 ends at frame j
+    neg = torch.full((b, 1), NEG_INF, device=dev)
+    zero = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    args = [torch.zeros((b, t_y), dtype=torch.int64, device=dev)]
+    for i in range(1, t_x):
+        r_i = prefix[:, i, :]
+        cm, am = torch.cummax(e - r_i, dim=1)
+        e = r_i + torch.cat([neg, cm[:, :-1]], dim=1)
+        args.append(torch.cat([zero, am[:, :-1]], dim=1))
+
+    # backtrack over tokens: j walks the segment ends right to left
+    durs = torch.zeros((b, t_x), dtype=torch.int64, device=dev)
+    j_cur = y_len - 1
+    for i in range(t_x - 1, -1, -1):
+        active = i < x_len
+        j_here = torch.where(i == x_len - 1, y_len - 1, j_cur)
+        k = args[i].gather(1, j_here.clamp(0, t_y - 1)[:, None])[:, 0]
+        dur = torch.where(active, j_here - k if i > 0 else j_here + 1, 0)
+        durs[:, i] = dur
+        j_cur = torch.where(active & (i > 0), k, j_here)
+    return durs.to(torch.int32)

@@ -7,8 +7,11 @@ starts them) holds a full replica of the parameters and optimizer state,
 takes one contiguous block of every batch's rows, and the train step sums
 the loss denominators and the gradients over the group with
 ``torch.distributed`` (``train/step.py``).  The model is ~30-60 M
-parameters, so data parallelism is the whole scaling strategy, as in the
-JAX package (``matcha_tpu/parallel/sharding.py:20-23``).
+parameters, so data parallelism is the recommended scaling strategy, as in
+the JAX package (``matcha_tpu/parallel/sharding.py:20-23``); tensor
+parallelism over a (data, model) grid of ranks, for width-scaled
+variants, is ``parallel/sharding.py``, whose data-parallel groups these
+collectives take as ``group``.
 
 Backends: ``nccl`` for the card, ``gloo`` for the CPU, and ``gloo`` on the
 card only when asked for (two ranks sharing one card, which NCCL refuses).
@@ -91,34 +94,36 @@ def shard_rows(batch, rank: int, world: int):
     return type(batch)(*(None if t is None else t[rows] for t in batch))
 
 
-def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum of ``tensor`` over the group, as a new tensor (the input is kept)."""
+def all_reduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum of ``tensor`` over ``group`` (default: the whole group), as a new
+    tensor (the input is kept)."""
     out = tensor.clone()
     if active():
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
-def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> None:
-    """Sum each tensor over the group in place, in one collective: flattened
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Sum each tensor over ``group`` in place, in one collective: flattened
     into one fp32 buffer, reduced, copied back."""
     if not active() or not tensors:
         return
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     start = 0
     for t in tensors:
         t.copy_(flat[start:start + t.numel()].view_as(t))
         start += t.numel()
 
 
-def broadcast_state(tensors: Mapping[str, torch.Tensor], src: int = 0) -> None:
-    """Rank ``src``'s values into every rank's tensors, in place."""
+def broadcast_state(tensors: Mapping[str, torch.Tensor], src: int = 0, group=None) -> None:
+    """Global rank ``src``'s values into the tensors of every rank of
+    ``group`` (default: the whole group), in place."""
     if not active():
         return
     with torch.no_grad():
         for t in tensors.values():
-            dist.broadcast(t, src=src)
+            dist.broadcast(t, src=src, group=group)
 
 
 def barrier() -> None:

@@ -12,14 +12,19 @@ versions on the CPU.  Data-parallel over N cards of one host:
     torchrun --nproc_per_node=N -m matcha_tpu_torch.train [overrides...]
 
 each rank on ``cuda:$LOCAL_RANK`` (``trainer.use_mesh=false`` trains each
-process alone).
+process alone).  Tensor-parallel over a (data, model) grid of ranks:
+
+    torchrun --nproc_per_node=2 -m matcha_tpu_torch.train trainer.tensor_parallel=2 \
+        experiment=v20-production
+
+(``parallel/sharding.py``).  Rank 0 prints the composed config as a tree
+(``utils/print_config.py``), as the JAX entry point does.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import os
 from pathlib import Path
 
@@ -28,6 +33,7 @@ from matcha_tpu_torch.models.config import DataStatistics, MatchaConfig
 from matcha_tpu_torch.train.optim import OptimizerConfig
 from matcha_tpu_torch.train.trainer import Trainer, TrainerConfig
 from matcha_tpu_torch.utils.configs import compose
+from matcha_tpu_torch.utils.print_config import print_config
 
 
 def build_model_config(cfg: dict) -> MatchaConfig:
@@ -150,7 +156,7 @@ def main(argv=None):
 
     cfg = compose(args.config, args.overrides)
     if os.environ.get("RANK", "0") == "0":
-        print(json.dumps(cfg, indent=2, default=str))
+        print_config(cfg, title="matcha_tpu_torch.train")
     trainer = build_trainer(cfg)
     try:
         trainer.fit(resume_from=cfg.get("ckpt_path"))

@@ -85,10 +85,14 @@ class AdamW:
     """The chain above over a {name: parameter} dict; updates in place."""
 
     def __init__(self, cfg: OptimizerConfig, decay: Mapping[str, bool],
-                 trainable: Mapping[str, bool] | None = None):
+                 trainable: Mapping[str, bool] | None = None, norm=None):
         self.cfg = cfg
         self.decay = dict(decay)
         self.trainable = None if trainable is None else dict(trainable)
+        # {name: gradient} → the global norm the clip and the finite check
+        # read; None is ``global_norm`` (tensor parallelism passes the norm
+        # of the whole, unsplit gradients)
+        self.norm = norm
 
     def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
         dev = next(iter(params.values())).device
@@ -125,7 +129,7 @@ class AdamW:
     def _apply(self, params, grads, state: OptState) -> None:
         cfg = self.cfg
         names = list(params)
-        g_norm = global_norm(grads[n] for n in names)
+        g_norm = global_norm(grads[n] for n in names) if self.norm is None else self.norm(grads)
         clip = g_norm < cfg.grad_clip
         if cfg.skip_nonfinite_updates:
             finite = torch.isfinite(g_norm)

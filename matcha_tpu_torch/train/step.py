@@ -21,10 +21,29 @@ and optimizer state stay bit-identical across ranks.  At dropout 0 a step
 equals the single-process step on the whole batch; with dropout the masks
 differ from a single process's (each rank draws its own from its rank's
 generator, where the JAX step draws them for the global batch).
+
+Tensor parallelism (``mesh2d``, a ``parallel.sharding.Mesh2D``): the
+ranks form a (dp, tp) grid.  The model's split pairs run on this rank's
+blocks of their parameters (``parallel/sharding.py``), the state holds
+those blocks (Adam's moments split alike), and the data-parallel rules
+above apply over the data-parallel group: each data index d holds a
+block of rows, which its tensor-parallel peers share; denominators and
+gradients are summed over the data-parallel group; dropout draws from
+(seed, step, d), the data index, so that tensor-parallel peers draw the
+same masks (under pure data parallelism d is the rank).  The gradients
+of replicated parameters are averaged over the tensor-parallel group, so
+that their copies stay equal across peers on a card whose backward is not
+bit-deterministic (equal inputs give equal values on the CPU).  The clip's
+global norm sums the split gradients' squares over the tensor-parallel
+group and counts the replicated ones once, so every rank clips by the
+same norm and skips the same steps.  MAS runs on every rank, on its data
+block's rows.  ``whole_state`` gathers the blocks into whole tensors for a
+checkpoint; ``local_state`` slices whole ones.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -35,7 +54,7 @@ from torch.func import functional_call
 from matcha_tpu_torch.inference import resolve_device, strict_fp32
 from matcha_tpu_torch.models.config import MatchaConfig
 from matcha_tpu_torch.models.matcha import MatchaTTS, init_params
-from matcha_tpu_torch.parallel import mesh
+from matcha_tpu_torch.parallel import mesh, sharding
 from matcha_tpu_torch.train.optim import AdamW, OptimizerConfig, OptState, global_norm
 from matcha_tpu_torch.weights import decay_mask
 
@@ -76,15 +95,34 @@ class TrainStep:
     """The model skeleton, the optimizer and the two step functions."""
 
     def __init__(self, cfg: MatchaConfig, opt_cfg: OptimizerConfig, device=None,
-                 trainable: dict[str, bool] | None = None, data_parallel: bool = False):
+                 trainable: dict[str, bool] | None = None, data_parallel: bool = False,
+                 mesh2d: sharding.Mesh2D | None = None):
         self.device = resolve_device(device)
         strict_fp32(self.device)  # the log-prior product and the fp32 islands
         self.cfg = cfg
         self.model = MatchaTTS(cfg).to(self.device)
-        self.opt = AdamW(opt_cfg, decay_mask(cfg), trainable)
-        self.data_parallel = data_parallel
-        if data_parallel and not mesh.active():
+        self.mesh2d = mesh2d
+        self.specs = None
+        norm = None
+        if mesh2d is not None:
+            self.specs = sharding.tp_param_specs(self.model.state_dict(), cfg, mesh2d.tp)
+            sharding.apply_tensor_parallel(
+                self.model, self.specs, sharding.TPGroup(mesh2d.tp_group, mesh2d.tp, mesh2d.m))
+
+            def norm(grads):
+                return torch.sqrt(sharding.split_norm_sq(grads, self.specs, mesh2d))
+        self.opt = AdamW(opt_cfg, decay_mask(cfg), trainable, norm=norm)
+        self.data_parallel = data_parallel or mesh2d is not None
+        if self.data_parallel and not mesh.active():
             raise RuntimeError("data_parallel needs a running process group (parallel.mesh.init_data_parallel)")
+        # this process's data block (index, count) and the group its
+        # losses and gradients are summed over (None: the whole group)
+        if mesh2d is not None:
+            self.data_index, self.data_size, self.dp_group = mesh2d.d, mesh2d.dp, mesh2d.dp_group
+        elif self.data_parallel:
+            self.data_index, self.data_size, self.dp_group = mesh.rank(), mesh.world(), None
+        else:
+            self.data_index, self.data_size, self.dp_group = 0, 1, None
 
     def init_state(self, params: dict[str, torch.Tensor] | None = None,
                    generator: torch.Generator | None = None) -> TrainState:
@@ -92,8 +130,44 @@ class TrainStep:
         if params is None:
             params = init_params(self.cfg, generator or torch.Generator().manual_seed(0))
         p = {n: t.detach().to(self.device, torch.float32).clone().requires_grad_(True)
-             for n, t in params.items()}
+             for n, t in self.local_state(params).items()}
         return TrainState(p, self.opt.init(p), 0)
+
+    def local_state(self, whole: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """This rank's blocks of whole tensors (all of them without
+        tensor parallelism)."""
+        if self.mesh2d is None:
+            return dict(whole)
+        return sharding.shard_state(whole, self.specs, self.mesh2d.tp, self.mesh2d.m)
+
+    def local_opt_state(self, whole: OptState) -> OptState:
+        """An optimizer state of whole tensors, sliced to this rank's blocks."""
+        if self.mesh2d is None:
+            return whole
+        return dataclasses.replace(
+            whole, mu=self.local_state(whole.mu), nu=self.local_state(whole.nu),
+            acc_grads=None if whole.acc_grads is None else self.local_state(whole.acc_grads))
+
+    def whole_state(self, state: TrainState) -> tuple[dict[str, torch.Tensor], OptState]:
+        """(parameters, optimizer state) as whole tensors: the blocks
+        gathered over the tensor-parallel group (collective: every rank
+        calls it)."""
+        if self.mesh2d is None:
+            return state.params, state.opt_state
+        opt = state.opt_state
+
+        def whole(tensors):
+            return sharding.gather_state(tensors, self.specs, self.mesh2d)
+
+        return whole(state.params), dataclasses.replace(
+            opt, mu=whole(opt.mu), nu=whole(opt.nu),
+            acc_grads=None if opt.acc_grads is None else whole(opt.acc_grads))
+
+    def grad_norm(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole gradients."""
+        if self.opt.norm is None:
+            return global_norm(grads.values())
+        return self.opt.norm(grads)
 
     def _losses(self, params, batch: Batch, seed: int, dropout_seed: int, loss_kwargs):
         """The losses of this process's rows, on (seed)- and
@@ -101,8 +175,8 @@ class TrainStep:
         rank's share of the global batch's losses."""
         if self.data_parallel:
             b = batch.x.shape[0]
-            loss_kwargs = {"sum_over_ranks": mesh.all_reduce_sum,
-                           "rows": (mesh.rank() * b, mesh.world() * b), **loss_kwargs}
+            loss_kwargs = {"sum_over_ranks": lambda t: mesh.all_reduce_sum(t, self.dp_group),
+                           "rows": (self.data_index * b, self.data_size * b), **loss_kwargs}
         return functional_call(
             self.model, params,
             (batch.x, batch.x_lengths, batch.y, batch.y_lengths, batch.y_fine,
@@ -119,34 +193,41 @@ class TrainStep:
         (each rank holds its share of the global batch's)."""
         parts = torch.stack([losses[k].detach() for k in ("loss", "diff_loss", "dur_loss", "prior_loss")])
         if self.data_parallel:
-            parts = mesh.all_reduce_sum(parts)
+            parts = mesh.all_reduce_sum(parts, self.dp_group)
         return dict(zip(("loss", "sub_loss/diff", "sub_loss/dur", "sub_loss/prior"), parts))
 
     def train_step(self, state: TrainState, batch: Batch, seed: int, **loss_kwargs):
         """Updates ``state`` in place; returns it and the metrics (device
         scalars).  ``loss_kwargs`` (``deterministic``, ``cfm_t_noise``) pass
         to ``compute_losses``."""
-        rank = mesh.rank() if self.data_parallel else 0
         losses = self._losses(state.params, batch, step_seed(seed, state.step),
-                              step_seed(seed, state.step, rank), loss_kwargs)
+                              step_seed(seed, state.step, self.data_index), loss_kwargs)
         names = list(state.params)
         grads = torch.autograd.grad(losses["loss"], [state.params[n] for n in names],
                                     allow_unused=True)
         grads = {n: torch.zeros_like(state.params[n]) if g is None else g
                  for n, g in zip(names, grads)}
         if self.data_parallel:
-            mesh.all_reduce_sum_(list(grads.values()))
+            mesh.all_reduce_sum_(list(grads.values()), self.dp_group)
+        if self.mesh2d is not None and self.mesh2d.tp > 1:
+            # a replicated parameter's gradient is the same on every
+            # tensor-parallel peer in exact arithmetic; their mean keeps the
+            # peers' copies equal where the card's backward is not
+            # deterministic (the attention backward's atomic sums)
+            replicated = [g for n, g in grads.items() if self.specs[n] is None]
+            mesh.all_reduce_sum_(replicated, self.mesh2d.tp_group)
+            for g in replicated:
+                g.div_(self.mesh2d.tp)
         self.opt.update(state.params, grads, state.opt_state)
         state.step += 1
-        metrics = {**self._loss_metrics(losses), "grad_norm": global_norm(grads.values())}
+        metrics = {**self._loss_metrics(losses), "grad_norm": self.grad_norm(grads)}
         return state, metrics
 
     @torch.no_grad()
     def eval_step(self, params, batch: Batch, seed: int, **loss_kwargs):
         """Losses without an update.  Dropout stays on, as in the JAX
         package's ``eval_step`` (it passes no ``deterministic``)."""
-        rank = mesh.rank() if self.data_parallel else 0
-        losses = self._losses(params, batch, seed, step_seed(seed, 0, rank), loss_kwargs)
+        losses = self._losses(params, batch, seed, step_seed(seed, 0, self.data_index), loss_kwargs)
         return self._loss_metrics(losses)
 
 

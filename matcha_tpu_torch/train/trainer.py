@@ -17,7 +17,16 @@ of rows (MAS runs per rank on them, as the JAX package's shard_map does),
 the step sums losses and gradients over the group (``train/step.py``),
 validation losses are summed likewise, and only rank 0 writes checkpoints
 and metrics; every rank reads a checkpoint on resume.  One process with no
-group trains alone.  ``tensor_parallel > 1`` raises.
+group trains alone.
+
+Tensor parallelism (``TrainerConfig.tensor_parallel = k > 1``, the JAX
+trainer's ``tensor_parallel``): the ranks of the group (started from
+``WORLD_SIZE`` as above; one must be running) form a (world/k, k) grid
+(``parallel/sharding.py::make_mesh_2d``); batch sizes are multiples of the
+data-parallel size world/k, each data index's ranks train on one block of
+rows with the model's FFN and attention pairs split over them, and rank 0
+gathers whole tensors into its checkpoints, which load at any
+``tensor_parallel``.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from matcha_tpu_torch.data.datamodule import TextMelDataModule
 from matcha_tpu_torch.data.dataset import TextMelDataset
 from matcha_tpu_torch.inference import resolve_device
 from matcha_tpu_torch.models.config import MatchaConfig
-from matcha_tpu_torch.parallel import mesh
+from matcha_tpu_torch.parallel import mesh, sharding
 from matcha_tpu_torch.train.checkpoint import (
     expand_speaker_tables,
     save_checkpoint,
@@ -118,8 +127,9 @@ class Trainer:
         trainable_mask: dict[str, bool] | None = None,
         device=None,
     ):
-        if trainer_cfg.tensor_parallel > 1:
-            raise NotImplementedError("tensor parallelism is not ported: the port trains data-parallel only")
+        tp = trainer_cfg.tensor_parallel
+        if tp > 1 and not trainer_cfg.use_mesh:
+            raise ValueError("tensor_parallel > 1 needs use_mesh")
         self.model_cfg = model_cfg
         self.cfg = trainer_cfg
         self.trainable_mask = trainable_mask
@@ -130,14 +140,26 @@ class Trainer:
             self._owns_group = True
         self.data_parallel = trainer_cfg.use_mesh and mesh.active()
         self.rank, self.world = (mesh.rank(), mesh.world()) if self.data_parallel else (0, 1)
-        self.steps = TrainStep(model_cfg, opt_cfg, device, trainable_mask, self.data_parallel)
+        self.mesh2d = None
+        if tp > 1:
+            if not self.data_parallel:
+                raise RuntimeError(f"tensor_parallel={tp} needs a process group of a multiple of {tp} "
+                                   "ranks (torchrun --nproc_per_node ...)")
+            try:
+                self.mesh2d = sharding.make_mesh_2d(self.world, tp)
+            except ValueError:  # tp does not divide the world: end a group this trainer started
+                if self._owns_group:
+                    mesh.destroy()
+                raise
+        self.steps = TrainStep(model_cfg, opt_cfg, device, trainable_mask, self.data_parallel,
+                               mesh2d=self.mesh2d)
         self.device = self.steps.device
         self.train_step = self.steps.train_step
         self.eval_step = self.steps.eval_step
         self.dm = TextMelDataModule(
             train_dataset, valid_dataset,
             max_frames_per_batch=max_frames_per_batch, len_bucket=len_bucket,
-            text_bucket=text_bucket, batch_multiple=self.world, seed=trainer_cfg.seed,
+            text_bucket=text_bucket, batch_multiple=self.steps.data_size, seed=trainer_cfg.seed,
         )
         self.out_dir = Path(trainer_cfg.output_dir)
         self.logger = MetricLogger(self.out_dir) if self.rank == 0 else NullLogger()
@@ -164,8 +186,9 @@ class Trainer:
 
     @property
     def _shard(self) -> tuple[int, int] | None:
-        """This rank's (rank, world) under data parallelism."""
-        return (self.rank, self.world) if self.data_parallel else None
+        """This rank's block of rows (data index, data-parallel size) under
+        data parallelism."""
+        return (self.steps.data_index, self.steps.data_size) if self.data_parallel else None
 
     def init_state(self, resume_from: str | None = None) -> TrainState:
         """Fresh (random weights from the run's seed) or resumed state.
@@ -179,7 +202,9 @@ class Trainer:
         checkpoint's speaker count.
         """
         state = self._load_state(resume_from)
-        if self.data_parallel:  # every rank starts from rank 0's parameters
+        if self.mesh2d is not None:  # each block from data index 0's
+            mesh.broadcast_state(state.params, src=self.mesh2d.dp_root, group=self.mesh2d.dp_group)
+        elif self.data_parallel:  # every rank starts from rank 0's parameters
             mesh.broadcast_state(state.params)
         return state
 
@@ -204,9 +229,10 @@ class Trainer:
             tree, ckpt_cfg = expand_speaker_tables(tree, ckpt_cfg, want)
         params, opt_state, step, _ = train_state_from_tree(
             tree, ckpt_cfg, self.device, with_optimizer=not fine_tune)
+        params = {n: p.detach().requires_grad_(True) for n, p in self.steps.local_state(params).items()}
         if fine_tune:
             return TrainState(params, self.steps.opt.init(params), 0)
-        return TrainState(params, opt_state, step)
+        return TrainState(params, self.steps.local_opt_state(opt_state), step)
 
     def _prefetch(self, batches, depth: int = 2):
         """Collate ``depth`` batches ahead in a thread and copy each to the
@@ -258,7 +284,7 @@ class Trainer:
 
     def fit(self, resume_from: str | None = None, max_steps: int | None = None) -> TrainState:
         state = self.init_state(resume_from)
-        n_params = sum(p.numel() for p in state.params.values())
+        n_params = sum(p.numel() for p in self.steps.model.state_dict().values())
         self.logger.log(state.step, {"model/params_total": n_params})
         epoch = 0
         done = False
@@ -299,10 +325,12 @@ class Trainer:
                                      "epoch": epoch})
 
     def save(self, state: TrainState, epoch: int):
-        """Rank 0 writes; the others wait until it has."""
+        """Rank 0 writes whole tensors (gathered from every tensor-parallel
+        rank's blocks); the others wait until it has."""
+        params, opt_state = self.steps.whole_state(state)
         if self.rank == 0:
             path = self.out_dir / "checkpoints" / f"epoch_{epoch:05d}"
-            save_checkpoint(path, state.params, state.opt_state, state.step, epoch, self.model_cfg,
+            save_checkpoint(path, params, opt_state, state.step, epoch, self.model_cfg,
                             optimizer=self.steps.opt)
             self._prune_checkpoints()
         if self.data_parallel:

@@ -119,6 +119,9 @@ def matcha_param_table(cfg: MatchaConfig) -> list[tuple[str, str, str]]:
     def tblocks(src, dst):
         for b in range(cfg.decoder.n_blocks):
             s, d = f"{src}.{b}", f"{dst}_tblock{b}"
+            if cfg.decoder.block_type == "conformer":
+                conformer(s, d)
+                continue
             t.norm(f"{s}.norm1", f"{d}/norm1")
             t.norm(f"{s}.norm3", f"{d}/norm3")
             for proj in ("to_q", "to_k", "to_v"):
@@ -128,6 +131,15 @@ def matcha_param_table(cfg: MatchaConfig) -> list[tuple[str, str, str]]:
             t.add(f"{s}.ff.net.0.alpha", f"{d}/ff/alpha")
             t.add(f"{s}.ff.net.0.beta", f"{d}/ff/beta")
             t.layer(f"{s}.ff.net.2", f"{d}/ff/proj_out", "dense")
+
+    def conformer(s, d):
+        # the port's own submodule names (models/decoder.py::ConformerBlock)
+        for norm in ("ff1_norm", "attn_norm", "conv_norm", "ff2_norm", "final_norm"):
+            t.norm(f"{s}.{norm}", f"{d}/{norm}")
+        for dense in ("ff1_in", "ff1_out", "to_q", "to_k", "to_v", "to_out", "conv_in", "conv_out",
+                      "ff2_in", "ff2_out"):
+            t.layer(f"{s}.{dense}", f"{d}/{dense}", "dense")
+        t.layer(f"{s}.conv_dw", f"{d}/conv_dw", "conv")
 
     n_down = len(cfg.decoder.channels)
     for i in range(n_down):

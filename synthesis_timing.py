@@ -8,8 +8,10 @@ file), makes the full-width bf16 synthesizer with seeded random weights
 ``chip_smoke.py`` on it through the synthesizer's public entry points:
 ``model`` (B=1 fused latency over 10 requests, B=16 fused RTF over 3 calls,
 one long request) and ``profile`` (host wall time and device busy time of
-one B=1 and one B=16 call).  Prints the two phases' lines, then one JSON
-line with the card and the numbers to compare.  Needs a CUDA card.  To
+one B=1 and one B=16 call); then ``train_profile`` (wall and device busy
+time of one B=62 x 512 training step at full width, bf16, over
+``chip_smoke.write_corpus``'s synthetic corpus).  Prints the phases' lines,
+then one JSON line with the card and the numbers to compare.  Needs a CUDA card.  To
 compare two checkouts, run each in its own process in turns on one card:
 A, B, B, A.
 """
@@ -20,10 +22,11 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import torch
 
-from chip_smoke import phase_model, phase_profile, production_synthesizer
+from chip_smoke import phase_model, phase_profile, phase_train_profile, production_synthesizer, write_corpus
 
 
 def main() -> int:
@@ -39,13 +42,20 @@ def main() -> int:
     synth = production_synthesizer("bfloat16")
     model = phase_model(synth, masked_attention_fwd_count)
     profile = phase_profile(synth)
+    n_feats = synth.cfg.n_feats
+    del synth
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="synthesis_timing_") as tmp:
+        write_corpus(tmp, n_feats)
+        train = phase_train_profile(tmp)["step"]
     print(json.dumps({
         "root": root, "card": smi,
         "b1_fused_latency_ms_p50": model["b1_fused_latency_ms_p50"],
         "b1_fused_latency_ms": model["b1_fused_latency_ms"],
         "b16_fused_rtf_median": model["b16_fused_rtf_median"],
         "profile": {k: {m: profile[k][m] for m in ("wall_ms", "device_busy_ms", "device_idle_share")}
-                    for k in ("b1_fused", "b16_fused")}}), flush=True)
+                    for k in ("b1_fused", "b16_fused")},
+        "train_step": {m: train[m] for m in ("wall_ms", "device_busy_ms", "device_idle_share")}}), flush=True)
     return 0
 
 

@@ -120,7 +120,9 @@ def test_resume_continues_the_step_count(corpus, run1):
 
 
 def test_tensor_parallel_raises(corpus):
-    with pytest.raises(NotImplementedError):
+    """tensor_parallel=2 without a process group raises: it never trains
+    as one process (tests/test_torch_tensor_parallel.py trains it)."""
+    with pytest.raises(RuntimeError, match="process group"):
         make_trainer(corpus, "run3", tensor_parallel=2)
 
 
