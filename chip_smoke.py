@@ -90,13 +90,29 @@ JSON line:
               |Δ| and fused p50 of each
  26. durations  the segment DP (maximum_path_durations) against K2+K3's
               durations at (62, 224, 1024); torch.cummax's tie rule; times
+ 27. measure  after phase 6: utils/probe.inner_repeat (a CUDA-graph replay)
+              on the decode stage at B=1 and B=16 beside utils/
+              trace_analysis.device_stats of a traced decode; device_stats
+              of a profiled B=1 fused request beside device_breakdown's
+              busy time (which phases 6, 11, 14 and 15 now read through
+              trace_analysis too); wait_for_backend on a live card
+ 28. native_train  after phase 11: a Trainer on the card (the native C++
+              batch loader, built from native/src with g++) over phase 8's
+              corpus, 3 steps; one batch equal to collate_numpy's; collate
+              and step times (host); the Ogg/Opus encoder from that library
+ 29. reference_ckpt  after phase 24: a Lightning .ckpt and an HF Vocos
+              pytorch_model.bin at v20 widths through the port's converter
+              CLIs, load_synthesizer, one B=1 fused request bit-equal to a
+              direct build, one WAV and one Ogg/Opus server request; K1
+              exactly 100 times each
  (3b.) kernel_time at the new signatures: K1 with and without lse and K1b
               at the encoder's training shape (62,6,224,48), v20's
               (62,6,512,64) and the tp=2 halves (62,3,512,64), (62,3,224,48),
               each checked against its plain version, beside SDPA
 
 The launch counters are set to 0 just before each main path (phases 4-5,
-synthesis; phase 8, training; each of phases 13-17, 19, 21 and 22-25) and
+synthesis; phase 8, training; each of phases 13-17, 19, 21, 22-25, 28
+and 29) and
 read just after: the kernels line reports those launches, by path.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -183,11 +199,17 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """The CUDA kernels (one extension) and the native batch loader's
+    library (g++ from native/src), both from the checkout's sources."""
+    from matcha_tpu_torch.data import native_loader
     from matcha_tpu_torch.ops.extension import kernels
 
     t0 = time.perf_counter()
     kernels()
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3)})
+    t1 = time.perf_counter()
+    native_loader.load_library()
+    emit({"phase": "build", "seconds": round(t1 - t0, 3), "native_loader_seconds": round(time.perf_counter() - t1, 3),
+          "native_loader": os.path.relpath(native_loader.library_path(), ROOT)})
 
 
 K1_CHECK_SHAPES = [(16, 6, 256, 48), (16, 5, 512, 64), (16, 5, 256, 64), (2, 6, 4000, 48), (3, 5, 333, 64),
@@ -481,53 +503,53 @@ def phase_server(synth) -> dict:
 
 
 def device_breakdown(run, kernels=("masked_attention_fwd",)) -> dict:
-    """One ``run()`` under torch.profiler: the device's busy time (union of
-    kernel and copy intervals), the attention kernel's share of it, each
-    named kernel's time, launches and share, and the kernels that take the
-    most time.  Host wall time is taken with the profiler off, around the
-    same call ending in a synchronize."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One ``run()`` under the port's profiler (``utils/profiling.trace``),
+    read by ``utils/trace_analysis.device_stats``: the device's busy time
+    (union of kernel, memcpy and memset intervals), the attention kernel's
+    share of it, each named kernel's time, launches and share, and the
+    kernels that take the most time.  Host wall time is taken with the
+    profiler off, around the same call ending in a synchronize."""
+    from matcha_tpu_torch.utils import profiling, trace_analysis
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end, by_name = 0.0, -math.inf, {}
-    for s, e, name in spans:
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
-    attention_us = sum(t for n, t in by_name.items() if "masked_attention_fwd" in n)
-    attention_n = sum(1 for _, _, n in spans if "masked_attention_fwd" in n)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    busy_ms = busy_us / 1e3
-    named = {}
-    for pattern in kernels:
-        us = sum(t for n, t in by_name.items() if pattern in n)
-        named[pattern] = {"ms": us / 1e3, "launches": sum(1 for _, _, n in spans if pattern in n),
-                          "share_of_busy": us / busy_us if busy_us else None}
-    return {"wall_ms": wall_ms, "device_events": len(spans), "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms if spans else None,
-            "attention_ms": attention_us / 1e3, "attention_launches": attention_n,
-            "attention_share_of_busy": attention_us / busy_us if busy_us else None,
-            "kernels": named, "top_kernels_ms": [[n[:90], t / 1e3] for n, t in top]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+        with profiling.trace(logdir):
+            run()
+        stats = trace_analysis.device_stats(logdir)
+    modules = stats["modules"]
+    busy_ms = stats["device_busy_ms"]
+
+    def named(pattern) -> dict:
+        ms = sum(m["ms"] for n, m in modules.items() if pattern in n)
+        return {"ms": ms, "launches": sum(m["count"] for n, m in modules.items() if pattern in n),
+                "share_of_busy": ms / busy_ms if busy_ms else None}
+
+    attention = named("masked_attention_fwd")
+    return {"wall_ms": wall_ms, "device_events": stats["device_events"], "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if stats["device_events"] else None,
+            "attention_ms": attention["ms"], "attention_launches": attention["launches"],
+            "attention_share_of_busy": attention["share_of_busy"],
+            "kernels": {pattern: named(pattern) for pattern in kernels},
+            "top_kernels_ms": [[n[:90], m["ms"]] for n, m in list(modules.items())[:8]],
+            "trace": {"wall_span_ms": stats["wall_span_ms"], "device_planes": stats["device_planes"]}}
 
 
 def phase_profile(synth) -> dict:
-    """Where the time of the main path goes on the device, B=1 and B=16."""
+    """Where the time of the main path goes on the device, B=1 and B=16.
+    The audio's device-to-host copy is named apart (``Memcpy DtoH``): its
+    time depends on the host's pages as much as on the card."""
     ids = ids_of(200, 1)
     lists = [ids_of(180 + 4 * i, 100 + i) for i in range(16)]
     mixes = [[(15, 1.0)]] * 16
+    named = ("masked_attention_fwd", "Memcpy DtoH")
     out = {"phase": "profile",
-           "b1_fused": device_breakdown(lambda: synth.synthesise_ids(ids, scale_correction=1.0, fused=True)),
-           "b16_fused": device_breakdown(lambda: synth.synthesise_batch(lists, voice_mixes=mixes, fused=True))}
+           "b1_fused": device_breakdown(lambda: synth.synthesise_ids(ids, scale_correction=1.0, fused=True), named),
+           "b16_fused": device_breakdown(lambda: synth.synthesise_batch(lists, voice_mixes=mixes, fused=True),
+                                         named)}
     emit(out)
     return out
 
@@ -2353,6 +2375,345 @@ def phase_path_signatures() -> dict:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# the reference's own checkpoints served with no JAX, the native batch
+# loader, the measuring modules
+# ---------------------------------------------------------------------------
+
+def v20_hparams():
+    """configs/experiment/v20-production.yaml's model section as a Lightning
+    checkpoint's ``hyper_parameters``, nested as namespaces."""
+    from types import SimpleNamespace as NS
+
+    return NS(
+        n_spks=16, n_feats=100, spk_emb_dim=96,
+        encoder=NS(encoder_params=NS(n_feats=100, n_channels=192, filter_channels=1152, n_heads=6, n_layers=4,
+                                     kernel_size=5, p_dropout=0.05, prenet=True, prenet_kernel_size=3),
+                   duration_predictor_params=NS(filter_channels_dp=96, kernel_size=5, p_dropout=0.05, n_layers=4)),
+        decoder=NS(channels=[384, 384], dropout=0.05, attention_head_dim=64, n_blocks=2, num_mid_blocks=2,
+                   num_heads=6),
+        cfm=NS(name="CFM", solver="midpoint", sigma_min=1e-4, use_mu_prior=True),
+        data_statistics=NS(mel_mean=-4.684777, mel_std=6.512275),
+        optimizer=None, scheduler=None, prior_loss=True, prior_loss_threshold=0.15, duration_loss_threshold=0.3)
+
+
+def speech_request(url: str, ids, fmt: str):
+    """One /v1/audio/speech request for ``ids`` as ``fmt``: (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    body = json.dumps({"phoneme_ids": ids, "voice": "15", "response_format": fmt}).encode()
+    req = urllib.request.Request(url + "/v1/audio/speech", data=body, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def libopus_present() -> bool:
+    """Whether ``dlopen`` finds libopus, as the native encoder looks for it."""
+    import ctypes
+
+    for name in ("libopus.so.0", "libopus.so"):
+        try:
+            ctypes.CDLL(name)
+            return True
+        except OSError:
+            continue
+    return False
+
+
+def phase_reference_ckpt(tmp: str, counters) -> dict:
+    """The reference's own checkpoint formats served with no JAX, at v20
+    widths: a Lightning ``.ckpt`` (seeded random weights in the reference
+    layout, every other decoder name under ``_orig_mod.``, the statistics
+    buffers, hparams as namespaces) and an HF Vocos ``pytorch_model.bin``
+    (``backbone.embed`` weight-normed, the ISTFT window beside it) through
+    the port's two converter CLIs; ``load_synthesizer`` on their outputs;
+    the loaded weights bit-equal to the checkpoints' own; one B=1 fused
+    request, bit-equal to a synthesizer built straight from the weights the
+    checkpoints were made from, and one server request as WAV and one as
+    Ogg/Opus.  The counts are set to 0 just before each request and read
+    just after: K1 exactly ``request_launches`` (100) times each."""
+    import dataclasses
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from matcha_tpu_torch import convert_matcha_ckpt, convert_vocos
+    from matcha_tpu_torch.checkpoint import load_synthesizer
+    from matcha_tpu_torch.inference import MatchaSynthesizer
+    from matcha_tpu_torch.models.matcha import init_params
+    from matcha_tpu_torch.serving.server import TTSService, make_handler
+    from matcha_tpu_torch.vocoder.vocos import VocosConfig, init_vocos_params
+
+    root = os.path.join(tmp, "reference_ckpt")
+    os.makedirs(root, exist_ok=True)
+    want = dataclasses.replace(v20_train_config(), compute_dtype="float32")
+    gen = torch.Generator().manual_seed(20)
+    sd = init_params(want, gen)
+    sd["encoder.proj_w.proj.weight"].zero_()  # 4 fine frames a token, as production_synthesizer
+    sd["encoder.proj_w.proj.bias"].fill_(math.log(6.0))
+    e = "decoder.estimator."
+    lightning = {(e + "_orig_mod." + k[len(e):] if k.startswith(e) and i % 2 else k): v
+                 for i, (k, v) in enumerate(sd.items())}
+    lightning["mel_mean"], lightning["mel_std"] = torch.tensor(-4.684777), torch.tensor(6.512275)
+    ckpt_path, bin_path = os.path.join(root, "last.ckpt"), os.path.join(root, "pytorch_model.bin")
+    torch.save({"state_dict": lightning, "hyper_parameters": v20_hparams(), "epoch": 0, "global_step": 0},
+               ckpt_path)
+    vcfg = VocosConfig()
+    vsd = init_vocos_params(vcfg, gen)
+    # the weight-normed conv's weight is drawn so that its fold g·v/‖v‖ is
+    # exact in fp32: each row holds 676 entries ±2^e and zeros, so
+    # ‖v‖ = 26·2^e.  The direct build then takes the weight itself, which
+    # no converter touched, and must still be bit-equal
+    shape = vsd.pop("backbone.embed.weight").shape
+    rows, fan_in = shape[0], math.prod(shape[1:])
+    keep = torch.rand(rows, fan_in, generator=gen).argsort(dim=1) < 676
+    signs = torch.randint(0, 2, (rows, fan_in), generator=gen).float() * 2 - 1
+    w = (signs * keep * torch.pow(2.0, torch.randint(-6, -3, (rows, 1), generator=gen).float())).reshape(shape)
+    vsd["backbone.embed.parametrizations.weight.original0"] = w.flatten(1).norm(dim=1).reshape(-1, 1, 1)
+    vsd["backbone.embed.parametrizations.weight.original1"] = w
+    vsd["head.istft.window"] = torch.hann_window(vcfg.n_fft)
+    torch.save(vsd, bin_path)
+
+    t0 = time.perf_counter()
+    convert_matcha_ckpt.main(["--input", ckpt_path, "--output", os.path.join(root, "converted"), "--strict"])
+    convert_vocos.main(["--input", bin_path, "--output", os.path.join(root, "vocos.pkl")])
+    convert_s = time.perf_counter() - t0
+    synth = load_synthesizer(os.path.join(root, "converted"), os.path.join(root, "vocos.pkl"), device="cuda")
+    check(synth.cfg.to_dict() == want.to_dict(), f"derived config is not v20's: {synth.cfg}")
+    check(synth.vocos_cfg == vcfg, f"derived Vocos config {synth.vocos_cfg}")
+    # the direct build takes the weights the checkpoints were made from, the
+    # Vocos weight that went in as a weight-norm parametrization included;
+    # none of it passes through the converters
+    plain_vocos = {k: v for k, v in vsd.items() if ".parametrizations." not in k and k != "head.istft.window"}
+    plain_vocos["backbone.embed.weight"] = w
+    weights_equal = {}
+    for name, module, own in (("matcha", synth.model, sd), ("vocos", synth.vocos, plain_vocos)):
+        loaded = module.state_dict()
+        weights_equal[name] = sorted(loaded) == sorted(own) and all(
+            torch.equal(loaded[k].cpu(), v) for k, v in own.items())
+    check(all(weights_equal.values()), f"converted weights differ from the checkpoints' own: {weights_equal}")
+    direct = MatchaSynthesizer(want, sd, plain_vocos, vcfg, device="cuda")
+
+    ids = ids_of(200, 1)
+    check(synth.predict_fine_bucket(256, 1.0) == 1024, "production bucket is not 1024")
+    direct.synthesise_ids(ids, scale_correction=1.0, fused=True)  # first calls: allocator, cuDNN
+    ref = direct.synthesise_ids(ids, scale_correction=1.0, fused=True)
+    synth.synthesise_ids(ids, scale_correction=1.0, fused=True)
+    per_request = request_launches(want)
+    for c in counters.values():
+        c.reset()
+    got = synth.synthesise_ids(ids, scale_correction=1.0, fused=True)
+    launches = {"fused": read_counts(counters)}
+    check_wav(got.wav, len(ids), "reference_ckpt B=1 fused")
+    bit_equal = bool(got.wav.shape == ref.wav.shape and np.array_equal(got.wav, ref.wav))
+    check(bit_equal, "the converted checkpoint's audio differs from the direct build's")
+    del direct
+
+    service = TTSService(synth, use_batcher=True)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    served = {}
+    try:
+        service.warmup()
+        for fmt in ("wav", "ogg"):
+            for c in counters.values():
+                c.reset()
+            status, data = speech_request(url, ids, fmt)
+            launches[fmt] = read_counts(counters)
+            served[fmt] = {"status": status, "bytes": len(data), "magic": data[:4].decode("latin-1"),
+                           **({} if status == 200 else {"body": data[:200].decode("utf-8", "replace")})}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        if service.batcher is not None:
+            service.batcher.shutdown()
+    check(served["wav"]["status"] == 200 and served["wav"]["magic"] == "RIFF", f"WAV response {served['wav']}")
+    # the encoder dlopens libopus when it encodes; where the machine has none
+    # the server must say so (500 naming libopus), and the Ogg path is not
+    # exercised here
+    served["ogg"]["libopus"] = libopus_present()
+    if served["ogg"]["libopus"]:
+        check(served["ogg"]["status"] == 200 and served["ogg"]["magic"] == "OggS", f"Ogg response {served['ogg']}")
+    else:
+        check(served["ogg"]["status"] == 500 and "libopus" in served["ogg"]["body"], f"Ogg response {served['ogg']}")
+    for what, counts in launches.items():
+        check(counts["masked_attention_fwd"] == per_request == 100,
+              f"{what}: K1 launched {counts['masked_attention_fwd']} times, expected {per_request}")
+        check(all(counts[n] == 0 for n in counts if n != "masked_attention_fwd"), f"{what}: {counts}")
+    out = {"phase": "reference_ckpt", "derived_config": {
+               "decoder": [list(want.decoder.channels), want.decoder.num_heads, want.decoder.attention_head_dim],
+               "encoder_heads": want.encoder.n_heads, "spk_emb_dim": want.spk_emb_dim, "n_spks": want.n_spks,
+               "compute_dtype": synth.cfg.compute_dtype, "equals_v20": True},
+           "convert_s": convert_s, "weights_equal": weights_equal,
+           "bit_equal_to_direct_build": bit_equal, "b1_fused_latency_ms": got.latency_s * 1e3,
+           "wav_samples": len(got.wav), "served": served, "launches": launches}
+    emit(out)
+    del synth
+    torch.cuda.empty_cache()
+    return {"launches": {n: sum(c[n] for c in launches.values()) for n in counters}}
+
+
+def phase_native_train(tmp: str, counters) -> dict:
+    """The training path with the native batch loader: a ``Trainer`` on the
+    card (which takes the loader, built from ``native/src``) over phase
+    train's corpus at 32,000 frames a batch, 3 steps, the counts set to 0
+    just before and read just after; one batch of the native collate held
+    equal to ``collate_numpy``'s; the collate time per batch of each route
+    and the step times (host clock, no claim); the Ogg/Opus encoder bound
+    from the same built library."""
+    import numpy as np
+
+    from matcha_tpu_torch.data import native_loader
+    from matcha_tpu_torch.data.collate import collate, collate_numpy
+    from matcha_tpu_torch.data.dataset import TextMelDataset
+    from matcha_tpu_torch.train.optim import OptimizerConfig
+    from matcha_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from matcha_tpu_torch.utils import opus_converter
+
+    cfg = bf16_train_config()
+    ds = TextMelDataset(os.path.join(tmp, "train.csv"), os.path.join(tmp, "mels"), cfg.n_feats)
+    tcfg = TrainerConfig(output_dir=os.path.join(tmp, "native_run"), max_epochs=-1, log_every_n_steps=1,
+                         checkpoint_every_n_epochs=100, seed=4321)
+    trainer = Trainer(cfg, OptimizerConfig(), tcfg, ds, max_frames_per_batch=32000, len_bucket=32)
+    check(trainer.dm.use_native is True and native_loader.loaded(), "the trainer on the card took no native loader")
+    steps, real_step = [], trainer.train_step
+
+    def timed_step(state, batch, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = real_step(state, batch, seed)
+        torch.cuda.synchronize()
+        steps.append({"batch": list(batch.y.shape[:2]), "seconds": time.perf_counter() - t0,
+                      "loss": float(metrics["loss"])})
+        return state, metrics
+
+    trainer.train_step = timed_step
+    native_loader.fill_batch_count.reset()
+    for c in counters.values():
+        c.reset()
+    try:
+        trainer.fit(max_steps=3)
+    finally:
+        trainer.close()
+    launches = read_counts(counters)
+    fills = native_loader.fill_batch_count.launches
+    check(len(steps) == 3 and all(math.isfinite(r["loss"]) for r in steps), f"steps {steps}")
+    check(fills >= 2 * len(steps), f"the native loader filled {fills} arrays for {len(steps)} batches")
+    per_step = step_launches(cfg)
+    check(launches == {n: len(steps) * per_step[n] for n in per_step},
+          f"3 native-loader steps launched {launches}, expected 3 x {per_step}")
+
+    plans = trainer.sampler.create_batches(0)
+    native = collate(ds, plans[0], 32, use_native=True)
+    reference = collate_numpy(ds, plans[0], 32)
+    check(native.y.is_pinned() and native.y_fine.is_pinned(), "the native batch's mels are not pinned")
+    equal = all(torch.equal(a, torch.from_numpy(b)) for a, b in zip(native, reference))
+    check(equal, "the native collate differs from collate_numpy")
+    collate_s = {"native": [], "numpy": []}
+    for rep in range(3):
+        for plan in plans:
+            for route in (("native", "numpy") if rep % 2 == 0 else ("numpy", "native")):
+                t0 = time.perf_counter()
+                collate(ds, plan, 32, use_native=route == "native")
+                collate_s[route].append(time.perf_counter() - t0)
+
+    lib = opus_converter._load()
+    check(lib is not None and lib._name == str(native_loader.library_path()),
+          "the Ogg/Opus encoder did not bind the library built from native/src")
+    tone = np.sin(np.arange(24000, dtype=np.float32) * 0.05) * 0.5
+    if libopus_present():
+        ogg = opus_converter.waveform_to_opus_ogg(tone)
+        check(ogg[:4] == b"OggS", "the Ogg/Opus encoder wrote no Ogg stream")
+        ogg = {"bytes": len(ogg)}
+    else:  # the loader loaded without libopus; the encoder must name what is missing
+        try:
+            opus_converter.waveform_to_opus_ogg(tone)
+            ogg = {"error": None}
+        except RuntimeError as exc:
+            ogg = {"error": str(exc)}
+        check(ogg["error"] is not None and "libopus" in ogg["error"], f"encoding without libopus: {ogg}")
+    out = {"phase": "native_train", "native_path": True, "fill_batch_calls": fills,
+           "library": os.path.relpath(native_loader.library_path(), ROOT), "batch_equal_to_numpy": equal,
+           "batch": list(native.y.shape[:2]), "steps": steps,
+           "median_step_s": statistics.median(r["seconds"] for r in steps),
+           "collate_ms_per_batch": {r: statistics.median(v) * 1e3 for r, v in collate_s.items()},
+           "collate_ms_all": {r: [x * 1e3 for x in v] for r, v in collate_s.items()},
+           "host_numbers": "host clock on a shared host; no claim", "libopus": libopus_present(), "ogg": ogg,
+           "launches": launches}
+    emit(out)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_stage(synth, lists, tx: int = 256, y_fine_len: int = 1024):
+    """Stage B (decode) of ``synth`` for ``lists`` at the production bucket:
+    the encoder's outputs on the card, and ``fn(acc, *inputs)`` that decodes
+    with ``mu_x`` perturbed by ``acc`` and returns the whole waveform's sum
+    (the probe's honesty rule)."""
+    from matcha_tpu_torch.inference import DEFAULT_NUM_STEPS, DEFAULT_ODE_SOLVER
+
+    rep = synth.replicas[0]
+    host = synth._stage_a_inputs(lists, [[(15, 1.0)]] * len(lists), [1.0] * len(lists), len(lists), tx)
+    mu_x, durations, x_mask = rep.encode(*(t.to(rep.device) for t in host))
+    lengths = torch.clamp(durations.sum(dim=1).to(torch.int64), 2, y_fine_len)
+
+    def body(acc, mu_x, durations, x_mask, lengths):
+        _, wav, _ = rep.decode(mu_x + acc, durations, x_mask, lengths, y_fine_len=y_fine_len,
+                               n_timesteps=DEFAULT_NUM_STEPS, solver=DEFAULT_ODE_SOLVER)
+        return wav.float().sum() * 1e-12
+
+    return body, (mu_x, durations, x_mask, lengths)
+
+
+def phase_measure(synth, profile) -> dict:
+    """The port's measuring modules on the card: ``probe.inner_repeat`` (one
+    CUDA-graph replay of the chain) on the decode stage at B=1 and B=16
+    production, beside ``trace_analysis.device_stats`` of one traced
+    decode; ``device_stats`` of a profiled B=1 fused request beside phase
+    profile's ``device_breakdown`` busy time; ``wait_for_backend`` on a live
+    card.  Outside every counted window: a probe's kernels count once, at
+    capture."""
+    from matcha_tpu_torch.utils import probe, profiling, trace_analysis
+    from matcha_tpu_torch.utils.backend_wait import wait_for_backend
+
+    out = {"phase": "measure"}
+    points = {"decode_b1": [ids_of(200, 1)], "decode_b16": [ids_of(180 + 4 * i, 100 + i) for i in range(16)]}
+    for name, lists in points.items():
+        body, inputs = decode_stage(synth, lists)
+        probed = probe.inner_repeat(body, *inputs, k=4, reps=5)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+            with profiling.trace(logdir):
+                body(torch.zeros((), device="cuda"), *inputs)
+            traced = trace_analysis.device_stats(logdir)
+        check(probed["device_ms"] > 0 and traced["device_busy_ms"] > 0, f"{name}: {probed}, {traced['device_busy_ms']}")
+        out[name] = {"probe": probed, "trace_busy_ms": traced["device_busy_ms"],
+                     "trace_wall_span_ms": traced["wall_span_ms"], "trace_device_events": traced["device_events"],
+                     "probe_over_trace": probed["device_ms"] / traced["device_busy_ms"] if traced["device_busy_ms"] else None}
+    ids = ids_of(200, 1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+        with profiling.trace(logdir):
+            synth.synthesise_ids(ids, scale_correction=1.0, fused=True)
+        fused = trace_analysis.device_stats(logdir)
+    check(fused["device_busy_ms"] > 0 and fused["device_planes"], f"no device time in the trace: {fused['device_planes']}")
+    out["fused_b1"] = {"trace_busy_ms": fused["device_busy_ms"], "trace_wall_span_ms": fused["wall_span_ms"],
+                       "device_events": fused["device_events"], "device_planes": fused["device_planes"],
+                       "device_breakdown_busy_ms": profile["b1_fused"]["device_busy_ms"],
+                       "top": [[n[:60], m] for n, m in list(fused["modules"].items())[:3]]}
+    t0 = time.perf_counter()
+    wait_for_backend()
+    out["wait_for_backend_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, timed, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": f"matcha_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
@@ -2384,7 +2745,8 @@ def main() -> int:
     phase_server(synth)
     synthesis = read_counts(counters)
     check(synthesis["masked_attention_fwd"] > 0, "the synthesis path never launched masked_attention_fwd")
-    phase_profile(synth)
+    profile = phase_profile(synth)
+    phase_measure(synth, profile)
     del synth
     torch.cuda.empty_cache()
     phase_reference()
@@ -2402,6 +2764,7 @@ def main() -> int:
         phase_train_learns(tmp)
         phase_train_reference(tmp)
         phase_train_profile(tmp)
+        native = {"native_train": phase_native_train(tmp, counters)["launches"]}
 
         # the voice-building tools: each phase sets the counts to 0 just
         # before its path and reads them just after
@@ -2422,6 +2785,8 @@ def main() -> int:
         tools["tp_train"] = phase_tp_train(tmp)["launches"]
         tools["conformer"] = phase_conformer(tmp, counters)["launches"]
         tools["remat"] = phase_remat(tmp, counters)["launches"]
+        tools["reference_ckpt"] = phase_reference_ckpt(tmp, counters)["launches"]
+        tools.update(native)
     for c in counters.values():
         c.reset()
     phase_norm_stats()

@@ -10,11 +10,16 @@ Public API surface:
     matcha_tpu_torch.audio.mel       — log-mel frontend
     matcha_tpu_torch.train           — Trainer, checkpoints and surgery
     matcha_tpu_torch.parallel        — data and tensor parallelism
+    matcha_tpu_torch.convert_matcha_ckpt, .convert_vocos
+                                     — the reference's Lightning / HF Vocos
+                                       weights → the formats served here
+    matcha_tpu_torch.data.native_loader — the C++ batch loader (g++ at first use)
 
 Entry points: ``python -m matcha_tpu_torch.serving.server``,
 ``python -m matcha_tpu_torch.train``, ``python -m matcha_tpu_torch.cli``,
 ``finetune_speaker``, ``train_style_encoder``, ``add_speaker`` and the
-corpus / checkpoint / MCD tools under ``matcha_tpu_torch.utils``.  Hand-written
+corpus / checkpoint / MCD / UTMOS / measuring tools under
+``matcha_tpu_torch.utils``.  Hand-written
 CUDA kernels live under ``ops/csrc`` and build on first use.
 """
 

@@ -2,7 +2,9 @@
 
 The port's own copy of ``matcha_tpu/data/datamodule.py``: it owns the two
 ``BucketedBatchSampler``s (validation sampling is deterministic, jitter 0,
-so the val loss compares across epochs) and yields collated CPU batches.
+so the val loss compares across epochs) and yields collated CPU batches,
+their mels read by the native loader or numpy (``use_native``, as
+``data/collate.py::collate`` takes it).
 Moving them to the card stays with the trainer, whose prefetch thread
 overlaps the copy with compute.
 """
@@ -35,6 +37,7 @@ class TextMelDataModule:
         text_bucket: int = 32,
         batch_multiple: int = 1,
         seed: int = 1234,
+        use_native: bool | None = None,
     ):
         self.train_ds = train_dataset
         self.valid_ds = valid_dataset
@@ -43,6 +46,7 @@ class TextMelDataModule:
         self.text_bucket = text_bucket
         self.batch_multiple = batch_multiple
         self.seed = seed
+        self.use_native = use_native
 
         lengths = [
             train_dataset.mel_length(i) for i in range(len(train_dataset))
@@ -103,6 +107,7 @@ class TextMelDataModule:
             text_bucket=self.text_bucket,
             batch_multiple=self.batch_multiple,
             seed=self.seed,
+            use_native=self.use_native,
         )
 
     # ------------------------------------------------------------------
@@ -113,7 +118,7 @@ class TextMelDataModule:
         re-create-on-epoch contract); ``shard`` = (rank, world) yields that
         rank's block of each batch."""
         return epoch_batches(
-            self.train_ds, self.train_sampler, epoch, self.text_bucket, shard
+            self.train_ds, self.train_sampler, epoch, self.text_bucket, shard, self.use_native
         )
 
     def valid_batches(self, shard: tuple[int, int] | None = None):
@@ -121,7 +126,7 @@ class TextMelDataModule:
         if self.valid_sampler is None:
             return iter(())
         return epoch_batches(
-            self.valid_ds, self.valid_sampler, 0, self.text_bucket, shard
+            self.valid_ds, self.valid_sampler, 0, self.text_bucket, shard, self.use_native
         )
 
     @property

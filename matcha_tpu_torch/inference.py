@@ -120,7 +120,10 @@ def strict_fp32(device: torch.device) -> None:
 
 
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
-    """Several tensors → float32 numpy arrays in ONE device→host copy."""
+    """Several tensors → float32 numpy arrays in ONE device→host copy (none
+    for none: a synthesizer without a vocoder pulls nothing)."""
+    if not tensors:
+        return []
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]).cpu().numpy()
     out, start = [], 0
     for t in tensors:

@@ -123,6 +123,12 @@ class TTSService:
             )
 
     def warmup(self):
+        # build the native library the Ogg/Opus encoder binds now, not inside
+        # the first Ogg request; a failed build is remembered, and Ogg
+        # requests then answer with its error
+        from matcha_tpu_torch.utils import opus_converter
+
+        opus_converter.available()
         # WARMUP_FULL=1 runs every reachable (text, mel) bucket pair once;
         # WARMUP_BATCH_SIZES (e.g. "1,2,4,8") the batcher's group ladder.
         sizes = tuple(

@@ -7,7 +7,10 @@ Counterpart of ``matcha_tpu/train/trainer.py``:
   * checkpoints every N epochs, keep-last-K, with the optimizer state
   * metrics to JSONL (always) and TensorBoard (when importable)
   * a prefetch thread collates the next batches and copies them to the
-    card from pinned memory with ``non_blocking=True`` while steps run
+    card from pinned memory with ``non_blocking=True`` while steps run; on
+    the card the mels come from the native loader (``data/native_loader.py``,
+    built at the trainer's start: a build or load failure raises there),
+    filled straight into pinned tensors; on the CPU from numpy
 
 Data parallelism (``TrainerConfig.use_mesh``, the default): when a process
 group is running, or ``WORLD_SIZE`` > 1 asks for one (``torchrun``; the
@@ -42,6 +45,7 @@ from pathlib import Path
 import torch
 
 from matcha_tpu_torch.checkpoint import load_checkpoint
+from matcha_tpu_torch.data import native_loader
 from matcha_tpu_torch.data.datamodule import TextMelDataModule
 from matcha_tpu_torch.data.dataset import TextMelDataset
 from matcha_tpu_torch.inference import resolve_device
@@ -156,10 +160,14 @@ class Trainer:
         self.device = self.steps.device
         self.train_step = self.steps.train_step
         self.eval_step = self.steps.eval_step
+        use_native = self.device.type == "cuda"
+        if use_native:
+            native_loader.load_library()
         self.dm = TextMelDataModule(
             train_dataset, valid_dataset,
             max_frames_per_batch=max_frames_per_batch, len_bucket=len_bucket,
             text_bucket=text_bucket, batch_multiple=self.steps.data_size, seed=trainer_cfg.seed,
+            use_native=use_native,
         )
         self.out_dir = Path(trainer_cfg.output_dir)
         self.logger = MetricLogger(self.out_dir) if self.rank == 0 else NullLogger()
@@ -236,8 +244,9 @@ class Trainer:
 
     def _prefetch(self, batches, depth: int = 2):
         """Collate ``depth`` batches ahead in a thread and copy each to the
-        device (pinned host memory, ``non_blocking=True`` on the card).
-        Worker exceptions re-raise in the consumer."""
+        device (pinned host memory, ``non_blocking=True`` on the card; a
+        tensor the native loader filled is pinned already).  Worker
+        exceptions re-raise in the consumer."""
         q: queue.Queue = queue.Queue(maxsize=depth)
         done = object()
         stop = threading.Event()
@@ -256,7 +265,8 @@ class Trainer:
             try:
                 for b in batches:
                     if on_card:
-                        b = Batch(*(t.pin_memory() for t in b)).to(self.device, non_blocking=True)
+                        b = Batch(*(t if t.is_pinned() else t.pin_memory() for t in b))
+                        b = b.to(self.device, non_blocking=True)
                     if not put(b):
                         return  # the consumer stopped early
                 put(done)

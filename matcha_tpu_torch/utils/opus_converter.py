@@ -1,45 +1,39 @@
-"""Ogg/Opus encoding via the native C++ encoder (libmatcha_native.so).
+"""Ogg/Opus encoding via the native C++ encoder.
 
 Host-side counterpart of the reference's PyAV/libopus path
 (reference: matcha/inference.py:300-320): mono 48 kbps Opus in an Ogg
-container.  Requires ``make -C native`` and a system libopus.
+container.  The encoder lives in the library that ``data/native_loader.py``
+builds from ``native/src`` (as the JAX package takes its library from its
+native loader); it ``dlopen``s the system libopus when it encodes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
-from pathlib import Path
 
 import numpy as np
 
-# the native library the repository builds under native/ (make -C native)
-_LIB_PATHS = [
-    Path(__file__).resolve().parent.parent.parent / "native" / "libmatcha_native.so",
-]
+from matcha_tpu_torch.data import native_loader
 
 
-@lru_cache(maxsize=1)
 def _load():
-    for p in _LIB_PATHS:
-        if p.exists():
-            lib = ctypes.CDLL(str(p))
-            try:
-                fn = lib.mtpu_opus_ogg_encode
-            except AttributeError:
-                return None
-            fn.argtypes = [
-                ctypes.POINTER(ctypes.c_int16),
-                ctypes.c_int64,
-                ctypes.c_int32,
-                ctypes.c_int32,
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
-                ctypes.POINTER(ctypes.c_int64),
-            ]
-            fn.restype = ctypes.c_int
-            lib.mtpu_opus_ogg_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
-            return lib
-    return None
+    """The native library with the encoder's argument types declared, or
+    None where the library does not build or load here."""
+    if not native_loader.available():
+        return None
+    lib = native_loader.load_library()
+    fn = lib.mtpu_opus_ogg_encode
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_int16),
+        ctypes.c_int64,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    fn.restype = ctypes.c_int
+    lib.mtpu_opus_ogg_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
+    return lib
 
 
 def available() -> bool:
@@ -53,7 +47,7 @@ def encode_opus_ogg(
     lib = _load()
     if lib is None:
         raise RuntimeError(
-            "native opus encoder unavailable (make -C native; needs libopus)"
+            "native opus encoder unavailable (the native library did not build: needs g++)"
         )
     pcm = np.ascontiguousarray(pcm, dtype=np.int16).ravel()
     out = ctypes.POINTER(ctypes.c_uint8)()
@@ -67,7 +61,8 @@ def encode_opus_ogg(
         ctypes.byref(n),
     )
     if rc != 0:
-        raise RuntimeError(f"opus encode failed: {rc}")
+        why = " (libopus.so.0 could not be loaded: install libopus)" if rc == -1 else ""
+        raise RuntimeError(f"opus encode failed: {rc}{why}")
     try:
         return bytes(
             bytearray(ctypes.cast(out, ctypes.POINTER(ctypes.c_uint8 * n.value)).contents)

@@ -1,4 +1,5 @@
-"""The port's voice-building tools on a card against the same tools on the CPU.
+"""The port's voice-building tools on a card against the same tools on the
+CPU, and its measuring modules on a card.
 
 Every test here carries the ``cuda`` marker and skips where no CUDA device
 exists.  This file imports torch, numpy and the port only, so it runs on a
@@ -10,7 +11,10 @@ imports JAX):
 Tolerances: log-mel (a float64 STFT and filterbank product on both: cuFFT
 on the card, pocketfft on the CPU) max |Δ| 2e-3, as the CPU parity tests
 hold the port against the JAX package; the StyleEncoder's outputs 1e-4 (fp32 convs,
-cuDNN against the CPU's, TF32 off).
+cuDNN against the CPU's, TF32 off).  ``utils/probe.inner_repeat`` captures
+a CUDA graph (and refuses what cannot be captured); ``utils/profiling.
+trace`` + ``utils/trace_analysis.device_stats`` read device time off a
+real trace.
 """
 
 from pathlib import Path
@@ -21,6 +25,7 @@ import torch
 
 from matcha_tpu_torch.audio.mel import MelConfig, legacy_hifigan_mel, log_mel_spectrogram
 from matcha_tpu_torch.models.style_encoder import StyleEncoder
+from matcha_tpu_torch.utils import probe, profiling, trace_analysis
 from matcha_tpu_torch.utils.audio_io import read_wav
 
 FIXTURES = Path(__file__).resolve().parent.parent / "mcd_validation"
@@ -62,3 +67,34 @@ def test_style_encoder_on_card_matches_cpu(card):
         got = style.to(card)(mel.to(card), mask.to(card))
     for g, w in zip(got, want):
         assert (g.cpu() - w).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_inner_repeat_captures_a_graph_on_the_card(card):
+    x = torch.randn(2048, 2048, device=card)
+
+    def fn(acc, x):
+        return (x @ (x + acc)).float().sum() * 1e-12
+
+    out = probe.inner_repeat(fn, x, k=4, reps=5)
+    assert out["device_ms"] > 0.0
+
+
+@pytest.mark.cuda
+def test_inner_repeat_refuses_what_cannot_be_captured(card):
+    x = torch.randn(8, device=card)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        probe.inner_repeat(lambda acc, x: acc + float(x.sum().item()), x, k=2, reps=1)
+    # the process's random draws on the card still work after the failed capture
+    assert torch.randn(4, device=card).isfinite().all()
+
+
+@pytest.mark.cuda
+def test_trace_on_the_card_reads_device_time(card, tmp_path):
+    x = torch.randn(1024, 1024, device=card)
+    with profiling.trace(str(tmp_path)):
+        for _ in range(5):
+            x = x @ x * 1e-3
+    stats = trace_analysis.device_stats(tmp_path)
+    assert stats["device_busy_ms"] > 0.0 and stats["device_events"] >= 5
+    assert stats["device_busy_ms"] <= stats["wall_span_ms"]
