@@ -105,14 +105,23 @@ JSON line:
               CLIs, load_synthesizer, one B=1 fused request bit-equal to a
               direct build, one WAV and one Ogg/Opus server request; K1
               exactly 100 times each
+ 30. hw_parity  after phase 21: utils/hw_parity.py's production operating
+              point (MatchaConfig() + VocosConfig(), speaker 2, 40 ids; a
+              4 x 32 x 64 training step in bf16 and in fp32) against the JAX
+              package's CPU fp32 oracle in tests/data/torch_e2e_oracle.npz,
+              with the JAX tier's bars (tests/test_tpu_e2e.py): fp32 mel
+              MCD < 0.1 dB, bf16 < 0.3 dB, durations <= 1 frame on <= 15 %
+              of tokens, fused against two-stage < 0.15 dB, train losses
+              rtol 0.05, update_l1 0.10; launches of each run held to their
+              exact counts
  (3b.) kernel_time at the new signatures: K1 with and without lse and K1b
               at the encoder's training shape (62,6,224,48), v20's
               (62,6,512,64) and the tp=2 halves (62,3,512,64), (62,3,224,48),
               each checked against its plain version, beside SDPA
 
 The launch counters are set to 0 just before each main path (phases 4-5,
-synthesis; phase 8, training; each of phases 13-17, 19, 21, 22-25, 28
-and 29) and
+synthesis; phase 8, training; each of phases 13-17, 19, 21, 22-25, 28,
+29 and 30) and
 read just after: the kernels line reports those launches, by path.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -877,14 +886,14 @@ def request_launches(cfg) -> int:
     return cfg.encoder.n_layers + 8 * dec.n_blocks * (2 * len(dec.channels) + dec.num_mid_blocks)
 
 
-def step_launches(cfg) -> dict:
+def step_launches(cfg, deterministic: bool = False) -> dict:
     """Launches of one training step: K1 and both K1b kernels once per
     decoder transformer block, and once per encoder layer when the encoder
-    has no dropout (with dropout its attention takes the plain path); MAS
-    once."""
+    has no dropout or the step is deterministic (with dropout its attention
+    takes the plain path); MAS once."""
     dec = cfg.decoder
     n_attn = dec.n_blocks * (2 * len(dec.channels) + dec.num_mid_blocks)
-    if cfg.encoder.p_dropout == 0.0:
+    if cfg.encoder.p_dropout == 0.0 or deterministic:
         n_attn += cfg.encoder.n_layers
     return {"masked_attention_fwd": n_attn, "masked_attention_bwd_dq": n_attn,
             "masked_attention_bwd_dkv": n_attn, "mas": 1}
@@ -2376,6 +2385,46 @@ def phase_path_signatures() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the hardware parity tier: the production operating point against the JAX
+# package's CPU fp32 oracle
+# ---------------------------------------------------------------------------
+
+def phase_hw_parity(counters) -> dict:
+    """utils/hw_parity.py at full width against tests/data/
+    torch_e2e_oracle.npz (the JAX package's CPU fp32 and bf16 runs on the
+    drawn weights, whose fingerprints are asserted): fp32 two-stage on the
+    card, bf16 two-stage and fused, one training step in bf16 and one in
+    fp32, each held to the JAX tier's bars (``hw_parity.bar_misses``); the
+    launches of each run held to their exact numbers."""
+    from matcha_tpu_torch.utils import hw_parity as hp
+
+    for c in counters.values():
+        c.reset()
+    out = hp.parity_readings("cuda")
+    total = read_counts(counters)
+    cfg, _ = hp.configs("bfloat16")
+    per_request = {"masked_attention_fwd": request_launches(cfg)}
+    want = {"fp32_two_stage": per_request, "bf16_two_stage": per_request, "bf16_fused": per_request,
+            "bf16_train_step": step_launches(cfg, deterministic=True),
+            "fp32_train_step": step_launches(cfg, deterministic=True)}
+    misses = hp.bar_misses(out)
+    out = {"phase": "hw_parity", **out, "launches": total, "bar_misses": misses,
+           "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
+           "bars": {"fp32_mcd_db": hp.MEL_MCD_FP32_BAR_DB, "bf16_mcd_db": hp.MEL_MCD_BF16_BAR_DB,
+                    "fused_mcd_db": hp.FUSED_MCD_BAR_DB, "duration_max_diff": hp.DURATION_MAX_DIFF,
+                    "duration_fraction": hp.DURATION_DIFF_FRACTION, "train_loss_rtol": hp.TRAIN_LOSS_RTOL,
+                    "update_l1_rtol": hp.UPDATE_L1_RTOL}}
+    emit(out)
+    check(out["tf32"] == [False, False], "TF32 is on: the fp32 run's products were not true fp32")
+    for name, counts in want.items():
+        for kernel, n in counts.items():
+            got = out["launches_by_run"][name][kernel]
+            check(got == n, f"{name} launched {kernel} {got} times, not {n}")
+    check(not misses, f"hardware parity bars missed: {misses}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the reference's own checkpoints served with no JAX, the native batch
 # loader, the measuring modules
 # ---------------------------------------------------------------------------
@@ -2799,6 +2848,9 @@ def main() -> int:
     tools["fanout"] = phase_fanout(synth, counters)["launches"]
     del synth
     torch.cuda.empty_cache()
+
+    # the hardware parity tier (it sets the counts to 0 itself)
+    tools["hw_parity"] = phase_hw_parity(counters)["launches"]
 
     on_path = phase_path_signatures()
     paths = {"synthesis": synthesis, "training": training, **tools}

@@ -10,6 +10,7 @@ from an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -219,22 +220,31 @@ class MatchaTTS(nn.Module):
         return self.speaker_embeddings_enc(spks), self.speaker_embeddings_dur(spks)
 
 
-def random_state_dict(module: nn.Module, generator: torch.Generator) -> dict[str, torch.Tensor]:
+def random_state_dict(module: nn.Module,
+                      generator: torch.Generator | np.random.RandomState) -> dict[str, torch.Tensor]:
     """Random weights for ``module`` from ``generator``, by parameter name.
 
     Matrices and conv kernels: normal with std 1/sqrt(fan-in); norm scales
     one; biases, norm shifts and SnakeBeta's log-scale alpha/beta zero; the
     FiLM projection starts as identity (zero weight, bias [1, 0]) and Vocos'
-    layer scale at 1e-6, as the JAX package initialises them.
+    layer scale at 1e-6, as the JAX package initialises them.  A numpy
+    ``RandomState`` draws the same scheme from numpy's legacy stream, which
+    is the same on every machine and numpy version.
     """
+    if isinstance(generator, np.random.RandomState):
+        def randn(shape):
+            return torch.from_numpy(generator.standard_normal(shape).astype(np.float32))
+    else:
+        def randn(shape):
+            return torch.randn(shape, generator=generator)
     out = {}
     for name, p in module.state_dict().items():
         shape = tuple(p.shape)
         leaf = name.rsplit(".", 1)[-1]
         if name == "encoder.emb.weight":
-            val = torch.randn(shape, generator=generator) * shape[1] ** -0.5
+            val = randn(shape) * shape[1] ** -0.5
         elif name.startswith("speaker_embeddings"):
-            val = torch.randn(shape, generator=generator) * shape[1] ** -0.5
+            val = randn(shape) * shape[1] ** -0.5
         elif name == "encoder.proj_w.spk_proj.weight":
             val = torch.zeros(shape)
         elif name == "encoder.proj_w.spk_proj.bias":
@@ -249,7 +259,7 @@ def random_state_dict(module: nn.Module, generator: torch.Generator) -> dict[str
             fan_in = 1
             for s in shape[1:]:
                 fan_in *= s
-            val = torch.randn(shape, generator=generator) * fan_in ** -0.5
+            val = randn(shape) * fan_in ** -0.5
         out[name] = val.to(torch.float32)
     return out
 

@@ -49,3 +49,11 @@ def test_synthesizer_without_device_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         MatchaSynthesizer(tiny_config(), params={})
+
+
+def test_card_e2e_tier_imports_no_jax():
+    """The card tier runs where there is no JAX: it imports neither JAX nor
+    the JAX package."""
+    path = ROOT / "tests" / "test_torch_cuda_e2e.py"
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"tests/test_torch_cuda_e2e.py imports {bad}"
