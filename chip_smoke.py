@@ -37,7 +37,8 @@ JSON line:
               synthetic corpus (buckets 512 at B=62 and 1088 at B=29, each
               run at least twice): per-step losses, grad norm, step time,
               launches per step; its checkpoint served by load_synthesizer
-  9. train_learns  20 steps on one fixed B=4 batch must cut the loss 10 %
+  9. train_learns  20 steps on one fixed B=4 batch must cut the loss 10 %,
+              and each sub-loss (diff, dur, prior) must fall
  10. train_reference  fp32, full width: losses and every gradient of the
               kernel path against the plain path
  11. train_profile  one B=62 training step under torch.profiler
@@ -114,6 +115,18 @@ JSON line:
               of tokens, fused against two-stage < 0.15 dB, train losses
               rtol 0.05, update_l1 0.10; launches of each run held to their
               exact counts
+ 31. bench    after phase 27: ``python -m matcha_tpu_torch.bench`` in-process
+              at 5 timed B=16 calls and 20 B=1 calls: the parity line with no
+              bar missed, then the headline (fused B=16 RTF at text 256 →
+              fine 1024, midpoint/4, durations pinned) with bench.py's keys,
+              an MFU in (0, 1) from the analytic FLOP count, spreads, the
+              probe, the idle shares and the audio's device→host copy
+ 32. profile_stage_b  ``utils/profile_stage_b`` at B=16, every component
+              a CUDA-graph replay; stage_b against ode + vocos + align
+ 33. profile_step  ``utils/profile_step`` at B=62 x 512: step time, real
+              frames a second, peak memory, busy time and idle share, MFU
+              Phases 31-33 run outside every counted window (a probe counts
+              its kernels once, at capture).
  (3b.) kernel_time at the new signatures: K1 with and without lse and K1b
               at the encoder's training shape (62,6,224,48), v20's
               (62,6,512,64) and the tp=2 halves (62,3,512,64), (62,3,224,48),
@@ -1022,16 +1035,25 @@ def phase_train_learns(tmp: str) -> dict:
     state = ts.init_state(generator=torch.Generator().manual_seed(7))
     batch = fixed_batch(tmp, cfg, 4)
     t_noise = fixed_t_noise(batch)
-    losses = []
+    names = ("loss", "sub_loss/diff", "sub_loss/dur", "sub_loss/prior")
+    history = {n: [] for n in names}
     for _ in range(20):
         state, m = ts.train_step(state, batch, 0, deterministic=True, cfm_t_noise=t_noise)
-        losses.append(float(m["loss"]))
+        for n in names:
+            history[n].append(float(m[n]))
+    losses = history["loss"]
     drop = 1.0 - losses[-1] / losses[0]
+    # each sub-loss: the mean of the last 5 steps below that of the first 5
+    sub_drops = {n: 1.0 - statistics.mean(h[-5:]) / statistics.mean(h[:5]) for n, h in history.items()
+                 if n != "loss"}
     out = {"phase": "train_learns", "batch": list(batch.y.shape[:2]), "losses": losses,
-           "relative_drop": drop, "required": 0.10}
+           "sub_losses": {n: history[n] for n in sub_drops}, "relative_drop": drop,
+           "sub_loss_relative_drop": sub_drops, "required": 0.10}
     emit(out)
-    check(all(math.isfinite(x) for x in losses) and drop >= 0.10,
+    check(all(math.isfinite(x) for h in history.values() for x in h) and drop >= 0.10,
           f"the loss fell {drop:.3f} in 20 steps, less than 10 %")
+    for n, d in sub_drops.items():
+        check(d > 0, f"{n} did not fall in 20 steps: last-5 mean {d:+.3f} against the first 5")
     return out
 
 
@@ -2763,6 +2785,98 @@ def phase_measure(synth, profile) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the measuring entry points: the benchmark and the two profilers, each run
+# in-process through its main() as a user runs it
+# ---------------------------------------------------------------------------
+
+def run_main(main, argv) -> tuple[int, list[str]]:
+    """``main(argv)`` with its standard output captured: (exit code, lines)."""
+    import contextlib
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def finite(x) -> bool:
+    return isinstance(x, (int, float)) and math.isfinite(x)
+
+
+def phase_bench() -> dict:
+    """``python -m matcha_tpu_torch.bench`` at 5 timed B=16 calls: the parity
+    line with no bar missed, then the headline with bench.py's keys, an MFU
+    in (0, 1) from the analytic count, spreads, the device's idle shares and
+    the audio's device→host copy.  Outside every counted window: its probe
+    counts kernels once, at capture."""
+    from matcha_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    rc, lines = run_main(bench.main, ["--iters", "5"])
+    seconds = time.perf_counter() - t0
+    check(rc == 0 and len(lines) == 2, f"bench exited {rc} with {len(lines)} lines")
+    parity, result = json.loads(lines[0]), json.loads(lines[1])
+    out = {"phase": "bench", "seconds": seconds, **result}
+    emit(out)
+    check(parity["bar_misses"] == [], f"bench: parity bars missed: {parity['bar_misses']}")
+    keys = ("metric", "value", "unit", "vs_baseline", "headline_path", "mfu", "mfu_flops_source",
+            "latency_p50_b1_ms", "latency_p50_b1_fused_ms", "fused_b16", "two_stage_b16_rtf", "stage_breakdown",
+            "device_breakdown", "fused_b1", "device", "spread_ms", "device_idle_share", "device_events_per_call",
+            "device_probe", "durations")
+    check(all(k in result for k in keys), f"bench: missing keys {[k for k in keys if k not in result]}")
+    check(result["mfu_flops_source"] == "analytic" and finite(result["mfu"]) and 0 < result["mfu"] < 1,
+          f"bench: mfu {result['mfu']}")
+    check(result["headline_path"] == "fused_single_dispatch_b16" and finite(result["value"]) and result["value"] > 0,
+          f"bench: headline {result['headline_path']} {result['value']}")
+    shares = list(result["device_idle_share"].values())
+    check(all(finite(x) and 0 <= x < 1 for x in shares), f"bench: idle shares {shares}")
+    check(finite(result["device_breakdown"]["d2h_copy_ms"]), "bench: no device-to-host copy in the B=16 trace")
+    probe = result["device_probe"]
+    check(probe["device_decode_ms"] > 0 and probe["device_encode_ms"] > 0, f"bench: probe {probe}")
+    check(result["spread_ms"]["latency_b1_fused"]["n"] >= 20, "bench: fewer than 20 B=1 repeats")
+    return out
+
+
+def phase_profile_stage_b() -> dict:
+    """``utils/profile_stage_b`` at the B=16 headline point, every
+    component: each one a CUDA-graph replay (a component that cannot be
+    captured raises), its scalar finite; stage_b within 15 % of ode + vocos
+    + align."""
+    from matcha_tpu_torch.utils import profile_stage_b
+
+    rc, lines = run_main(profile_stage_b.main, ["--batch", "16", "--components", "all"])
+    check(rc == 0, f"profile_stage_b exited {rc}")
+    result = json.loads(lines[-1])
+    out = {"phase": "profile_stage_b", **result}
+    emit(out)
+    for name in profile_stage_b.ALL_COMPONENTS:
+        entry = result[name]
+        check(finite(entry["scalar"]) and finite(entry["device_ms"]), f"profile_stage_b {name}: {entry}")
+    parts = sum(result[n]["device_ms"] for n in ("ode", "vocos", "align"))
+    check(abs(result["stage_b"]["device_ms"] - parts) <= 0.15 * parts,
+          f"stage_b {result['stage_b']['device_ms']} ms against its parts' {parts} ms")
+    return out
+
+
+def phase_profile_step() -> dict:
+    """``utils/profile_step`` at the production bucket B=62 x 512: finite
+    step times and losses, real frames a second, peak memory, the trace's
+    busy time and idle share, an MFU in (0, 1)."""
+    from matcha_tpu_torch.utils import profile_step
+
+    rc, lines = run_main(profile_step.main, ["--batch", "62", "--tx", "224", "--frames", "512", "--iters", "5"])
+    check(rc == 0, f"profile_step exited {rc}")
+    result = json.loads(lines[-1])
+    out = {"phase": "profile_step", **result}
+    emit(out)
+    check(finite(result["mfu"]) and 0 < result["mfu"] < 1, f"profile_step: mfu {result['mfu']}")
+    check(finite(result["coarse_frames_per_s"]) and result["peak_memory_gib"] > 0, "profile_step: rates")
+    trace = result["device_trace"]
+    check(trace["device_busy_ms_per_step"] > 0 and 0 <= trace["idle_share"] < 1, f"profile_step: trace {trace}")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, timed, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": f"matcha_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
@@ -2797,6 +2911,11 @@ def main() -> int:
     profile = phase_profile(synth)
     phase_measure(synth, profile)
     del synth
+    torch.cuda.empty_cache()
+    # the measuring entry points, outside every counted window
+    phase_bench()
+    phase_profile_stage_b()
+    phase_profile_step()
     torch.cuda.empty_cache()
     phase_reference()
 
@@ -2864,7 +2983,7 @@ def main() -> int:
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [
         kernel_entry("masked_attention_fwd", "masked_attention_fwd.cu",
-                     "matcha_tpu/ops/attention.py:117",
+                     "jax/experimental/pallas/ops/tpu/flash_attention.py:589",
                      total["masked_attention_fwd"], max(k1["max_abs_err"], on_path["masked_attention_fwd"]),
                      prod, shape=[16, 5, 512, 64], dtype="bfloat16",
                      lse_max_abs_err=max(k1["lse_max_abs_err"], on_path["lse"]),
@@ -2873,7 +2992,7 @@ def main() -> int:
                                                            "sdpa": e["sdpa_fwd_ms"]}
                                            for sh, e in new_sigs.items()}),
         kernel_entry("masked_attention_bwd_dq", "masked_attention_bwd.cu",
-                     "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+                     "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
                      total["masked_attention_bwd_dq"], bwd_err,
                      dict(bwd["masked_attention_bwd_dq"], plain_ms=bwd["plain_ms"],
                           library_ms=bwd["library_ms"]),
@@ -2882,7 +3001,7 @@ def main() -> int:
                      launches_by_path=by_path["masked_attention_bwd_dq"],
                      ms_at_new_signatures={str(list(sh)): e["bwd_dq"]["ms"] for sh, e in new_sigs.items()}),
         kernel_entry("masked_attention_bwd_dkv", "masked_attention_bwd.cu",
-                     "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+                     "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
                      total["masked_attention_bwd_dkv"], bwd_err,
                      dict(bwd["masked_attention_bwd_dkv"], plain_ms=bwd["plain_ms"],
                           library_ms=bwd["library_ms"]),

@@ -176,6 +176,27 @@ def trim_trailing_silence(audio: np.ndarray, silence_threshold_db: float = -60.0
     return audio[: -trailing * window]
 
 
+def align_prior(mu_x, durations, y_fine_lengths, y_fine_len: int):
+    """Stage B's prelude: the encoder's prior expanded by the durations to
+    ``y_fine_len`` fine frames, then halved to the decoder's frames →
+    (mu_y (B, T, C) fp32, y_mask (B, T))."""
+    y_fine_mask = sequence_mask(y_fine_lengths, y_fine_len).to(torch.float32)
+    # prior assembly as an fp32 gather: searchsorted over the duration
+    # cumsum (right side skips zero-duration tokens, like generate_path)
+    cum = torch.cumsum(durations.to(torch.int32), dim=1)
+    frames = torch.arange(y_fine_len, dtype=torch.int32, device=mu_x.device)
+    idx = torch.searchsorted(cum, frames[None].expand(cum.shape[0], -1).contiguous(), right=True)
+    # frames at/after the total duration are zero, as in the dense path
+    in_range = (frames[None, :] < cum[:, -1:]).to(torch.float32)
+    idx = torch.clamp(idx, 0, mu_x.shape[1] - 1)
+    mu_y_fine = torch.gather(
+        mu_x.float(), 1, idx[..., None].expand(-1, -1, mu_x.shape[-1])
+    ) * (y_fine_mask * in_range)[..., None]
+    mu_y = downsample_time(mu_y_fine)
+    y_lengths = (y_fine_lengths + 1) // 2
+    return mu_y, sequence_mask(y_lengths, mu_y.shape[1]).to(torch.float32)
+
+
 def _as_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v) for k, v in params.items()}
 
@@ -228,22 +249,7 @@ class _Replica:
     @torch.inference_mode()
     def decode(self, mu_x, durations, x_mask, y_fine_lengths, noise=None, *,
                 y_fine_len: int, n_timesteps: int, solver: str):
-        dev = mu_x.device
-        y_fine_mask = sequence_mask(y_fine_lengths, y_fine_len).to(torch.float32)
-        # prior assembly as an fp32 gather: searchsorted over the duration
-        # cumsum (right side skips zero-duration tokens, like generate_path)
-        cum = torch.cumsum(durations.to(torch.int32), dim=1)
-        frames = torch.arange(y_fine_len, dtype=torch.int32, device=dev)
-        idx = torch.searchsorted(cum, frames[None].expand(cum.shape[0], -1).contiguous(), right=True)
-        # frames at/after the total duration are zero, as in the dense path
-        in_range = (frames[None, :] < cum[:, -1:]).to(torch.float32)
-        idx = torch.clamp(idx, 0, mu_x.shape[1] - 1)
-        mu_y_fine = torch.gather(
-            mu_x.float(), 1, idx[..., None].expand(-1, -1, mu_x.shape[-1])
-        ) * (y_fine_mask * in_range)[..., None]
-        mu_y = downsample_time(mu_y_fine)
-        y_lengths = (y_fine_lengths + 1) // 2
-        y_mask = sequence_mask(y_lengths, mu_y.shape[1]).to(torch.float32)
+        mu_y, y_mask = align_prior(mu_x, durations, y_fine_lengths, y_fine_len)
         if noise is None:
             noise = self.noise(mu_y.shape[0], mu_y.shape[1])
 

@@ -18,6 +18,8 @@ from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 
+from matcha_tpu_torch.inference import DEFAULT_NUM_STEPS, DEFAULT_ODE_SOLVER
+
 
 @dataclass
 class _Pending:
@@ -40,8 +42,15 @@ class RequestBatcher:
         max_wait_ms: float = 15.0,
         fused: bool = False,
         pipeline: int = 1,
+        n_timesteps: int = DEFAULT_NUM_STEPS,
+        solver: str = DEFAULT_ODE_SOLVER,
     ):
         self.synth = synthesizer
+        # the operating point a request gets when it names none: the point
+        # the server warms up (serving/server.py passes DEFAULT_STEPS /
+        # DEFAULT_SOLVER here)
+        self.n_timesteps = n_timesteps
+        self.solver = solver
         self.fused = fused  # single-dispatch groups (see SERVE_FUSED)
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
@@ -98,10 +107,12 @@ class RequestBatcher:
         ids: list[int],
         speaker: int | None = None,
         length_scale: float = 1.0,
-        n_timesteps: int = 4,
-        solver: str = "midpoint",
+        n_timesteps: int | None = None,
+        solver: str | None = None,
         voice_mix: list[tuple[int, float]] | None = None,
     ) -> Future:
+        """Queue one request; ``n_timesteps`` / ``solver`` default to the
+        batcher's operating point."""
         if self._draining.is_set():
             raise RuntimeError("server draining; not accepting new requests")
         if self.wedged:
@@ -111,7 +122,9 @@ class RequestBatcher:
             )
         if voice_mix is None:
             voice_mix = [(int(speaker or 0), 1.0)]
-        item = _Pending(ids, voice_mix, length_scale, n_timesteps, solver)
+        item = _Pending(ids, voice_mix, length_scale,
+                        self.n_timesteps if n_timesteps is None else n_timesteps,
+                        self.solver if solver is None else solver)
         self.q.put(item)
         return item.future
 

@@ -120,6 +120,8 @@ class TTSService:
                 # (see batcher.py).  Default 4 as in the JAX package; not
                 # measured on the card yet.  Set 1 for serial dispatch.
                 pipeline=int(os.environ.get("SERVE_PIPELINE", "4")),
+                n_timesteps=self.default_steps,
+                solver=self.default_solver,
             )
 
     def warmup(self):

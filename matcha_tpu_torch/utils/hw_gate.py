@@ -18,8 +18,8 @@ limit:
 
     python -m matcha_tpu_torch.utils.hw_gate --out hw_gate.json
 
-Exits 1 if a tier fails, has no passing test or skips one; raises where
-there is no card.
+Exits 1 if a tier fails, times out, has no passing test or skips one (the
+artifact is written in every case); raises where there is no card.
 """
 
 from __future__ import annotations
@@ -73,16 +73,29 @@ def parse_counts(out: str) -> dict[str, int]:
     return counts
 
 
+def _text(stream) -> str:
+    """A captured stream as text (``TimeoutExpired`` may hold bytes or None)."""
+    if stream is None:
+        return ""
+    return stream.decode(errors="replace") if isinstance(stream, bytes) else stream
+
+
 def run_tier(name: str, paths: list[str], timeout_s: float) -> dict:
+    """One tier as a pytest subprocess.  A tier that runs past ``timeout_s``
+    is killed and recorded as failed (``returncode`` None, ``timed_out``),
+    with the tail of what it printed until then."""
     t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-s", "-m", "cuda", *paths],
-        capture_output=True, text=True, cwd=str(REPO), timeout=timeout_s,
-    )
-    out = proc.stdout + proc.stderr
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-s", "-m", "cuda", *paths],
+            capture_output=True, text=True, cwd=str(REPO), timeout=timeout_s,
+        )
+        returncode, timed_out, out = proc.returncode, False, proc.stdout + proc.stderr
+    except subprocess.TimeoutExpired as exc:
+        returncode, timed_out, out = None, True, _text(exc.stdout) + _text(exc.stderr)
     counts = parse_counts(out)
-    tier = {"paths": paths, "returncode": proc.returncode, **counts,
-            "ok": proc.returncode == 0 and counts["passed"] > 0 and counts["skipped"] == 0,
+    tier = {"paths": paths, "returncode": returncode, "timed_out": timed_out, **counts,
+            "ok": returncode == 0 and counts["passed"] > 0 and counts["skipped"] == 0,
             "wall_s": round(time.time() - t0, 1)}
     mcd, other = parse_readings(out)
     if mcd:

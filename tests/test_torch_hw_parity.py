@@ -146,6 +146,28 @@ def test_hw_gate_tiers_are_the_card_tests():
             assert (hw_gate.REPO / p).exists(), p
 
 
+def test_hw_gate_writes_its_artifact_when_a_tier_times_out(tmp_path, monkeypatch):
+    """A tier past its timeout is a failed tier with its output's tail; the
+    gate still writes the JSON artifact and exits 1."""
+    import json
+    import subprocess
+
+    def run(cmd, timeout=None, **_):
+        raise subprocess.TimeoutExpired(cmd, timeout, output="collected 6 items\n..", stderr=b"still running")
+
+    monkeypatch.setattr(hw_gate.subprocess, "run", run)
+    tier = hw_gate.run_tier("cuda_e2e", ["tests/test_torch_cuda_e2e.py"], 0.5)
+    assert tier["ok"] is False and tier["returncode"] is None and tier["timed_out"] is True
+    assert "collected 6 items" in tier["tail"] and "still running" in tier["tail"]
+
+    monkeypatch.setattr(hw_gate, "card", lambda: {"name": "stub"})
+    out = tmp_path / "gate.json"
+    assert hw_gate.main(["--out", str(out), "--timeout", "0.5"]) == 1
+    report = json.loads(out.read_text())
+    assert report["ok"] is False
+    assert all(t["timed_out"] and not t["ok"] for t in report["tiers"].values())
+
+
 def test_hw_gate_raises_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

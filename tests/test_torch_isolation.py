@@ -35,6 +35,14 @@ def test_scan_covers_the_port():
     assert any(f.name == "inference.py" for f in files)
 
 
+@pytest.mark.parametrize("module", ["bench.py", "utils/flops.py", "utils/profile_stage_b.py",
+                                    "utils/profile_step.py"])
+def test_scan_covers_the_measuring_entry_points(module):
+    """The benchmark and the profilers run on the card's machine, which has
+    no JAX: the scan holds them too."""
+    assert ROOT / "matcha_tpu_torch" / module in _port_files()
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]

@@ -110,3 +110,43 @@ def test_bad_request_is_400(server):
 def test_parse_voice():
     assert parse_voice("2") == [(2, 1.0)]
     assert parse_voice("2(70)+6(30)") == [(2, 0.7), (6, 0.3)]
+
+
+class _PointRecorder:
+    """A synthesizer stand-in that records the operating point of each group."""
+
+    def __init__(self):
+        self.points = []
+
+    def synthesise_batch(self, id_lists, n_timesteps, solver, **_):
+        from matcha_tpu_torch.inference import SynthesisResult
+
+        self.points.append((n_timesteps, solver))
+        return [SynthesisResult(wav=np.zeros(4, np.float32), rtf=0.0) for _ in id_lists]
+
+
+def test_submit_without_a_point_gets_the_batchers():
+    from matcha_tpu_torch.serving.batcher import RequestBatcher
+
+    synth = _PointRecorder()
+    batcher = RequestBatcher(synth, max_wait_ms=1.0, n_timesteps=2, solver="euler")
+    try:
+        batcher.submit([1, 2, 3]).result(timeout=30)
+        batcher.submit([1, 2, 3], n_timesteps=6, solver="rk4").result(timeout=30)
+    finally:
+        batcher.shutdown()
+    assert synth.points == [(2, "euler"), (6, "rk4")]
+
+
+def test_service_batcher_serves_the_servers_point(monkeypatch):
+    """A direct ``submit`` with no point is served at DEFAULT_STEPS /
+    DEFAULT_SOLVER, the point the server warms up."""
+    monkeypatch.setenv("DEFAULT_STEPS", "3")
+    monkeypatch.setenv("DEFAULT_SOLVER", "euler")
+    synth = _PointRecorder()
+    service = TTSService(synth, use_batcher=True)
+    try:
+        service.batcher.submit([5, 6]).result(timeout=30)
+    finally:
+        service.batcher.shutdown()
+    assert synth.points == [(3, "euler")]
