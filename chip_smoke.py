@@ -127,6 +127,30 @@ JSON line:
               frames a second, peak memory, busy time and idle share, MFU
               Phases 31-33 run outside every counted window (a probe counts
               its kernels once, at capture).
+ 34. ab_fast_solvers  after phase 30: ``utils/ab_fast_solvers`` in-process at
+              B=16, text 256, fine 1024, bf16: midpoint/4, euler/4,
+              midpoint/2, euler/8 each a CUDA-graph replay, with its mel MCD
+              against midpoint/4 (itself at 0); euler/4 and midpoint/2 under
+              0.65 x midpoint/4's device time; K1 counted exactly (the probe
+              counts a chain's launches once, at capture)
+ 35. ab_stage_b_levers  ``utils/ab_stage_b_levers`` in-process: bf16 norm
+              statistics and the fp32 carry (device ms, mel MCD > 0), the
+              decoder's convs in both layouts beside their bounds, the two
+              layouts' outputs equal in bf16 and fp32; K1 counted exactly
+ 36. live_serving  first its path in-process and counted (phase
+              live_serving_path): the legs' checkpoint loaded as the server
+              loads it, TTSService with the ladder 1..16 warmed, fused 0 and
+              1, each under ``psr/load_test.py --ids`` (20 users, 6 s) over
+              HTTP; K1 counted exactly, its signatures held by phase
+              path_signatures.  Then ``utils/live_serving_ab``: the port's
+              server booted per leg (max batch 8 and 16, fused 0 and 1)
+              under the load test at 20 users for 20 s; every leg answers
+              with no error
+ 37. progressive_boot  ``utils/measure_progressive_boot``: time to healthy
+              with WARMUP_PROGRESSIVE=1 against a full warmup; /health
+              answers 200 while still "warming", and a WAV is served then
+              The servers of phases 36-37 run K1 in their own processes,
+              outside every counted window.
  (3b.) kernel_time at the new signatures: K1 with and without lse and K1b
               at the encoder's training shape (62,6,224,48), v20's
               (62,6,512,64) and the tp=2 halves (62,3,512,64), (62,3,224,48),
@@ -134,7 +158,7 @@ JSON line:
 
 The launch counters are set to 0 just before each main path (phases 4-5,
 synthesis; phase 8, training; each of phases 13-17, 19, 21, 22-25, 28,
-29 and 30) and
+29, 30, 34, 35 and 36's in-process path) and
 read just after: the kernels line reports those launches, by path.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -470,10 +494,12 @@ def phase_server(synth) -> dict:
     from concurrent.futures import ThreadPoolExecutor
     from http.server import ThreadingHTTPServer
 
+    from unittest import mock
+
     from matcha_tpu_torch.serving.server import TTSService, make_handler
 
-    os.environ["BATCHER_MAX_WAIT_MS"] = "200"  # let the two concurrent requests meet
-    service = TTSService(synth, use_batcher=True)
+    with mock.patch.dict(os.environ, BATCHER_MAX_WAIT_MS="200"):  # let the two concurrent requests meet
+        service = TTSService(synth, use_batcher=True)
     group_sizes = []
     real_batch = synth.synthesise_batch
 
@@ -891,12 +917,18 @@ def read_counts(counters) -> dict:
     return {n: c.launches for n, c in counters.items()}
 
 
+def unet_launches(cfg) -> int:
+    """K1 launches of one U-Net evaluation: one per decoder transformer
+    block (12 at production widths)."""
+    dec = cfg.decoder
+    return dec.n_blocks * (2 * len(dec.channels) + dec.num_mid_blocks)
+
+
 def request_launches(cfg) -> int:
     """K1 launches of one served request: the encoder's layers plus the
     decoder's transformer blocks in each of the 8 U-Net evaluations of
     midpoint/4 (4 + 8 x 12 = 100 at production widths)."""
-    dec = cfg.decoder
-    return cfg.encoder.n_layers + 8 * dec.n_blocks * (2 * len(dec.channels) + dec.num_mid_blocks)
+    return cfg.encoder.n_layers + 8 * unet_launches(cfg)
 
 
 def step_launches(cfg, deterministic: bool = False) -> dict:
@@ -904,8 +936,7 @@ def step_launches(cfg, deterministic: bool = False) -> dict:
     decoder transformer block, and once per encoder layer when the encoder
     has no dropout or the step is deterministic (with dropout its attention
     takes the plain path); MAS once."""
-    dec = cfg.decoder
-    n_attn = dec.n_blocks * (2 * len(dec.channels) + dec.num_mid_blocks)
+    n_attn = unet_launches(cfg)
     if cfg.encoder.p_dropout == 0.0 or deterministic:
         n_attn += cfg.encoder.n_layers
     return {"masked_attention_fwd": n_attn, "masked_attention_bwd_dq": n_attn,
@@ -2877,6 +2908,268 @@ def phase_profile_step() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the chip A/B tools and the live-serving measurements: the two A/B tools
+# in-process (counted windows), the two server tools booting the port's
+# server in subprocesses (their launches are not counted)
+# ---------------------------------------------------------------------------
+
+def ab_decodes(k: int = 4) -> int:
+    """Decodes of one probed point: the mel, then inner_repeat's two warm-up
+    calls and its captures of 1 and k (a capture counts its launches once)."""
+    return 1 + 2 + 1 + k
+
+
+def json_report(lines: list[str]) -> dict:
+    """A tool's indented JSON report, from its captured standard output."""
+    return json.loads("\n".join(lines))
+
+
+def phase_ab_fast_solvers(counters) -> dict:
+    """``utils/ab_fast_solvers`` at B=16, text 256, fine 1024, bf16: each
+    point's device time (a CUDA-graph replay of the chain) and mel MCD
+    finite; midpoint/4 against itself at the MCD floor (0: the decode is
+    deterministic); euler/4 and midpoint/2 under 0.65 x midpoint/4's device
+    time (4 U-Net evaluations against 8); K1 launched exactly as counted:
+    the encoder once, then every decode of every point."""
+    from matcha_tpu_torch.models.config import MatchaConfig
+    from matcha_tpu_torch.utils import ab_fast_solvers as ab
+
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    rc, lines = run_main(ab.main, [])
+    seconds = time.perf_counter() - t0
+    launches = read_counts(counters)
+    check(rc == 0, f"ab_fast_solvers exited {rc}")
+    result = json_report(lines)
+    cfg = MatchaConfig()
+    evals = ab.unet_evals(*ab.REFERENCE) + ab_decodes() * sum(ab.unet_evals(*p) for p in ab.POINTS)
+    want = cfg.encoder.n_layers + evals * unet_launches(cfg)
+    out = {"phase": "ab_fast_solvers", "seconds": seconds, **result, "launches": launches,
+           "expected_k1_launches": want}
+    emit(out)
+    pts = result["points"]
+    for key, p in pts.items():
+        check(finite(p["device_ms"]) and p["device_ms"] > 0 and finite(p["mel_mcd_vs_midpoint4_db"]),
+              f"ab_fast_solvers {key}: {p}")
+    check(pts["midpoint/4"]["mel_mcd_vs_midpoint4_db"] == 0.0,
+          f"midpoint/4 against itself reads {pts['midpoint/4']['mel_mcd_vs_midpoint4_db']} dB: the decode is "
+          f"not deterministic (mel max |diff| {pts['midpoint/4']['mel_max_abs_diff_vs_midpoint4']})")
+    ref_ms = pts["midpoint/4"]["device_ms"]
+    for key in ("euler/4", "midpoint/2"):
+        check(pts[key]["device_ms"] < 0.65 * ref_ms, f"{key} {pts[key]['device_ms']} ms is not under 0.65 x {ref_ms}")
+    check(result["totals"] == [1024, 1024], f"the bucket is not full of speech: totals {result['totals']}")
+    check(launches["masked_attention_fwd"] == want, f"ab_fast_solvers launched K1 {launches['masked_attention_fwd']}"
+          f" times, expected {want}")
+    return out
+
+
+LAYOUT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # max |nwc - ncw| / max |ncw|; bf16: an output ulp
+
+
+def phase_ab_stage_b_levers(counters) -> dict:
+    """``utils/ab_stage_b_levers`` at the same point: levers a (bf16 norm
+    statistics) and c (the fp32 carry) with finite device times and a mel
+    MCD > 0 (0 would mean the switch was a no-op), lever b's convs finite
+    beside their bounds; the two layouts' outputs equal within LAYOUT_TOL
+    in bf16 (the tool's reading) and in fp32 (here, TF32 off); K1 launched
+    exactly as counted (per lever: one encode, two synthesizers' probed
+    decodes)."""
+    from matcha_tpu_torch.models.config import MatchaConfig
+    from matcha_tpu_torch.utils import ab_stage_b_levers as lv
+
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    rc, lines = run_main(lv.main, [])
+    seconds = time.perf_counter() - t0
+    launches = read_counts(counters)
+    result = json_report(lines)
+    cfg = MatchaConfig()
+    want = 2 * (cfg.encoder.n_layers + 2 * ab_decodes() * 8 * unet_launches(cfg))
+    fp32 = {}
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        for name, t, cin, cout, kernel, stride in lv.CONV_CASES:
+            x, conv, x_ncw, ncw = lv.conv_case(lv.B, t, cin, cout, kernel, stride, torch.float32, "cuda")
+            fp32[name] = lv.layout_rel_diff(conv(x), ncw(x_ncw))
+    out = {"phase": "ab_stage_b_levers", "seconds": seconds, **result, "launches": launches,
+           "expected_k1_launches": want, "layout_fp32_max_rel_diff": fp32,
+           "layout_tol": {str(k): v for k, v in LAYOUT_TOL.items()}}
+    emit(out)
+    check(rc == 0, f"ab_stage_b_levers exited {rc}: {lv.check_report(result)}")
+    for name, entry in result["lever_b_conv_layout"].items():
+        check(finite(entry["nwc_ms"]) and finite(entry["ncw_ms"]) and entry["bound_ms"] > 0, f"{name}: {entry}")
+        check(entry["ncw_vs_nwc_max_rel_diff"] <= LAYOUT_TOL[torch.bfloat16], f"{name} bf16 layouts differ: {entry}")
+        check(fp32[name] <= LAYOUT_TOL[torch.float32], f"{name} fp32 layouts differ by {fp32[name]}")
+    check(launches["masked_attention_fwd"] == want,
+          f"ab_stage_b_levers launched K1 {launches['masked_attention_fwd']} times, expected {want}")
+    return out
+
+
+def serve_artifacts(tmp: str) -> dict:
+    """The checkpoint and Vocos pickle the serving phases share (made once,
+    at production width, by ``utils/live_serving_ab.ensure_artifacts``)."""
+    return {"AB_CKPT": os.path.join(tmp, "serve_ckpt"), "AB_VOCOS": os.path.join(tmp, "serve_vocos.pkl")}
+
+
+LIVE_LADDER = "1,2,4,8,16"
+
+
+def phase_live_serving_path(tmp: str, counters) -> dict:
+    """The live legs' serving path in this process, in a counted window:
+    the artifacts the legs serve, loaded as the server loads them (text
+    buckets 64,128), a ``TTSService`` with the legs' ladder 1..16 warmed
+    and groups of up to 16, then ``psr/load_test.py --ids`` (20 users, 6 s)
+    over HTTP and one group of each ladder size at text bucket 128, once
+    with SERVE_FUSED=0 and once with 1.  K1 launches
+    exactly: the encoder's layers per encode and per fused call, the
+    decoder's blocks per U-Net evaluation of every decode and fused call;
+    its signatures join ``LAUNCHED``, so ``phase_path_signatures`` holds K1
+    against its plain version at the shapes the legs give it."""
+    from http.server import ThreadingHTTPServer
+    from unittest import mock
+
+    from matcha_tpu_torch.checkpoint import load_synthesizer
+    from matcha_tpu_torch.serving.server import TTSService, make_handler
+    from matcha_tpu_torch.utils import live_serving_ab as live
+
+    paths = serve_artifacts(tmp)
+    live.ensure_artifacts(paths["AB_CKPT"], paths["AB_VOCOS"])
+    synth = load_synthesizer(paths["AB_CKPT"], paths["AB_VOCOS"], text_buckets=(64, 128), device="cuda")
+    cfg = synth.cfg
+    calls = {"encode": 0, "decode_evals": 0, "fused": 0, "fused_evals": 0}
+    rows = set()
+
+    def evals(kw) -> int:
+        return kw["n_timesteps"] * (2 if kw["solver"] == "midpoint" else 1)
+
+    def counted(name):
+        real = getattr(synth, name)
+
+        def run(*args, **kw):
+            if name == "_run_encode":
+                calls["encode"] += 1
+                rows.add(int(args[0][0].shape[0]))
+            elif name == "_run_decode":
+                calls["decode_evals"] += evals(kw)
+            else:
+                calls["fused"] += 1
+                calls["fused_evals"] += evals(kw)
+                rows.add(int(args[0][0].shape[0]))
+            return real(*args, **kw)
+        return run
+
+    for name in ("_run_encode", "_run_decode", "_run_fused"):
+        setattr(synth, name, counted(name))
+    t0 = time.perf_counter()
+    cells = {}
+    for c in counters.values():
+        c.reset()
+    for fused in ("0", "1"):
+        env = dict(SERVE_FUSED=fused, BATCHER_MAX_BATCH="16", BATCHER_MAX_WAIT_MS="15",
+                   WARMUP_BATCH_SIZES=LIVE_LADDER, WARMUP_FULL="0", WARMUP_PROGRESSIVE="0")
+        with mock.patch.dict(os.environ, env):  # read at construction and by warmup
+            service = TTSService(synth, use_batcher=True)
+            httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            try:
+                service.warmup()
+                proc = subprocess.run(
+                    [sys.executable, "psr/load_test.py", "--host", f"http://127.0.0.1:{httpd.server_address[1]}",
+                     "--users", "20", "--minutes", "0.1", "--ids"],
+                    capture_output=True, text=True, cwd=ROOT, timeout=300)
+                # then every group size of the ladder at the load test's
+                # longest request (110 ids, voice 2: text bucket 128), as
+                # the batcher calls it, so that each (group, bucket) the
+                # legs can reach is launched here whatever the load grouped
+                for b in map(int, LIVE_LADDER.split(",")):
+                    synth.synthesise_batch([ids_of(110, 300 + b)] * b, voice_mixes=[[(2, 1.0)]] * b,
+                                           fused=fused == "1")
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=30)
+                service.batcher.shutdown()
+        cell = live.parse_report(proc.stdout)
+        cells[f"fused_{fused}"] = dict(cell, failure=live.cell_failure(proc.stdout, cell))
+    launches = read_counts(counters)
+    want = (cfg.encoder.n_layers * (calls["encode"] + calls["fused"])
+            + unet_launches(cfg) * (calls["decode_evals"] + calls["fused_evals"]))
+    out = {"phase": "live_serving_path", "seconds": time.perf_counter() - t0, "cells": cells, "calls": calls,
+           "group_rows": sorted(rows), "launches": launches, "expected_k1_launches": want,
+           "k1_signatures": [list(x) for x in sorted(counters["masked_attention_fwd"].signatures)]}
+    emit(out)
+    for key, cell in cells.items():
+        check(cell["failure"] is None and finite(cell["p50_ms"]) and finite(cell["p95_ms"]), f"{key}: {cell}")
+    check(calls["fused"] > 0 and calls["decode_evals"] > 0, f"both serving programs ran: {calls}")
+    check(launches["masked_attention_fwd"] == want,
+          f"the live serving path launched K1 {launches['masked_attention_fwd']} times, expected {want}")
+    check(all(launches[n] == 0 for n in launches if n != "masked_attention_fwd"), f"live serving path: {launches}")
+    del synth
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_live_serving(tmp: str) -> dict:
+    """``utils/live_serving_ab`` at legs 8,16 x fused 0,1, 20 users for 20 s a
+    cell, text buckets 64,128: the port's server booted in a subprocess per
+    leg (kernels prebuilt here), ``psr/load_test.py --ids`` against it;
+    every leg ok > 0, no error, finite p50/p95.  The servers' K1 launches
+    happen in their processes, outside every counted window;
+    ``phase_live_serving_path`` drives the same path in this process."""
+    from unittest import mock
+
+    from matcha_tpu_torch.utils import live_serving_ab
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, AB_LEGS="8,16", AB_FUSED="0,1", AB_USERS="20", AB_MINUTES="0.33",
+                         AB_PORT=str(free_port()), TEXT_BUCKETS="64,128", **serve_artifacts(tmp)):
+        rc, lines = run_main(live_serving_ab.main, [])
+    result = json_report(lines)
+    out = {"phase": "live_serving", "seconds": time.perf_counter() - t0, **result}
+    emit(out)
+    check(rc == 0 and result["ok"], f"live_serving_ab exited {rc}: {result.get('failed')}")
+    check(result["kernels_prebuilt"] and len(result["legs"]) == 4, f"live_serving legs {len(result['legs'])}")
+    check(result["widths"] == live_serving_ab.WIDTHS[False], f"served widths {result['widths']}")
+    for leg in result["legs"]:
+        cell = leg["users_20"]
+        check(cell["ok"] > 0 and cell["errors"] == 0 and finite(cell["p50_ms"]) and finite(cell["p95_ms"]),
+              f"leg b={leg['max_batch']} fused={leg['fused']}: {cell}")
+    return out
+
+
+def phase_progressive_boot(tmp: str) -> dict:
+    """``utils/measure_progressive_boot``: the port's server with
+    WARMUP_PROGRESSIVE=1 (ladder 1..16, text buckets 64,128) healthy no
+    later than fully warm (true by construction, the JAX tool's check);
+    the gate opened early: /health answered 200 while it still said
+    "warming", and a request served then answered 200 with a WAV; the
+    full-warmup boot's time to healthy and the gain recorded (one boot
+    each: reported, not held, as boot-to-boot noise is of its size)."""
+    from unittest import mock
+
+    from matcha_tpu_torch.utils import measure_progressive_boot
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, AB_PORT=str(free_port()), TEXT_BUCKETS="64,128", **serve_artifacts(tmp)):
+        rc, lines = run_main(measure_progressive_boot.main, [])
+    result = json_report(lines)
+    out = {"phase": "progressive_boot", "seconds": time.perf_counter() - t0, **result}
+    emit(out)
+    check(rc == 0 and result["ok"], f"measure_progressive_boot exited {rc}: {result.get('failed')}")
+    check(result["healthy_s"] <= result["fully_warm_s"], f"healthy {result['healthy_s']} > warm {result['fully_warm_s']}")
+    check(result["health_body_at_ready"].get("warming") is True,
+          f"/health said 200 only once the ladder was warm: {result['health_body_at_ready']}")
+    warm = result.get("request_during_warm")
+    check(warm is not None and warm["status"] == 200 and warm["wav"], f"request during warmup: {warm}")
+    check(finite(result["full_warmup"]["healthy_s"]) and finite(result["healthy_gain_s"]),
+          f"full warmup: {result['full_warmup']}")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, timed, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": f"matcha_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
@@ -2971,6 +3264,16 @@ def main() -> int:
     # the hardware parity tier (it sets the counts to 0 itself)
     tools["hw_parity"] = phase_hw_parity(counters)["launches"]
 
+    # the chip A/B tools in-process (each sets the counts to 0 itself), then
+    # the live-serving tools, whose servers run K1 in their own processes
+    tools["ab_fast_solvers"] = phase_ab_fast_solvers(counters)["launches"]
+    tools["ab_stage_b_levers"] = phase_ab_stage_b_levers(counters)["launches"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        tools["live_serving"] = phase_live_serving_path(tmp, counters)["launches"]
+        phase_live_serving(tmp)
+        phase_progressive_boot(tmp)
+
     on_path = phase_path_signatures()
     paths = {"synthesis": synthesis, "training": training, **tools}
     by_path = {n: {p: launches[n] for p, launches in paths.items()} for n in counters}
@@ -2988,6 +3291,10 @@ def main() -> int:
                      prod, shape=[16, 5, 512, 64], dtype="bfloat16",
                      lse_max_abs_err=max(k1["lse_max_abs_err"], on_path["lse"]),
                      launches_by_path=by_path["masked_attention_fwd"],
+                     launches_not_counted=("phases bench, profile_stage_b, profile_step (in-process, outside "
+                                           "every counted window); live_serving and progressive_boot (in the "
+                                           "server subprocesses they boot; live_serving_path drives the same "
+                                           "serving path in-process and is counted under live_serving)"),
                      ms_at_new_signatures={str(list(sh)): {"no_lse": e["fwd"]["ms"], "lse": e["fwd_lse"]["ms"],
                                                            "sdpa": e["sdpa_fwd_ms"]}
                                            for sh, e in new_sigs.items()}),

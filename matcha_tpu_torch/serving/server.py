@@ -18,7 +18,8 @@ each segment's audio streams out as it completes (pcm or wav formats;
 text cap STREAM_MAX_TEXT_LENGTH, default 5000 chars).
 
 Config via env vars: CHECKPOINT_PATH, VOCODER_PATH, MAX_TEXT_LENGTH (1000),
-PORT.  Differences from the reference: concurrent requests are micro-batched
+PORT, SERVE_DEVICE (default: the card; "cpu" serves on the CPU).
+Differences from the reference: concurrent requests are micro-batched
 into shared synthesis calls (serving/batcher.py) instead of being serialized.
 
 The port's counterpart of ``matcha_tpu/serving/server.py``: the same HTTP
@@ -514,11 +515,16 @@ def main():
     if os.environ.get("SERVE_MESH", "0") == "1" and torch.cuda.device_count() > 1:
         mesh = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
         print(f"fan-out over {len(mesh)} cards")
+    # SERVE_DEVICE: the torch device to serve on; unset means the card (and
+    # raises where there is none).  "cpu" runs the plain versions, the
+    # port's form of the JAX server's JAX_PLATFORMS=cpu; nothing falls back
+    # to the CPU on its own.
     synth = load_synthesizer(
         ckpt,
         os.environ.get("VOCODER_PATH"),
         text_buckets=tuple(int(x) for x in tb.split(",")) if tb else DEFAULT_TEXT_BUCKETS,
         mel_fine_buckets=tuple(int(x) for x in mb.split(",")) if mb else DEFAULT_MEL_FINE_BUCKETS,
+        device=os.environ.get("SERVE_DEVICE") or None,
         mesh=mesh,
     )
     # FUSED_FRAMES_PER_TOKEN: the trained model's pace statistic (fine

@@ -36,10 +36,12 @@ def test_scan_covers_the_port():
 
 
 @pytest.mark.parametrize("module", ["bench.py", "utils/flops.py", "utils/profile_stage_b.py",
-                                    "utils/profile_step.py"])
+                                    "utils/profile_step.py", "utils/ab_fast_solvers.py",
+                                    "utils/ab_stage_b_levers.py", "utils/live_serving_ab.py",
+                                    "utils/measure_progressive_boot.py"])
 def test_scan_covers_the_measuring_entry_points(module):
-    """The benchmark and the profilers run on the card's machine, which has
-    no JAX: the scan holds them too."""
+    """The benchmark, the profilers and the A/B and live-serving tools run
+    on the card's machine, which has no JAX: the scan holds them too."""
     assert ROOT / "matcha_tpu_torch" / module in _port_files()
 
 
