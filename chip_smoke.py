@@ -144,13 +144,20 @@ JSON line:
               HTTP; K1 counted exactly, its signatures held by phase
               path_signatures.  Then ``utils/live_serving_ab``: the port's
               server booted per leg (max batch 8 and 16, fused 0 and 1)
-              under the load test at 20 users for 20 s; every leg answers
+              under the load test at 20 users for 10 s; every leg answers
               with no error
  37. progressive_boot  ``utils/measure_progressive_boot``: time to healthy
               with WARMUP_PROGRESSIVE=1 against a full warmup; /health
               answers 200 while still "warming", and a WAV is served then
               The servers of phases 36-37 run K1 in their own processes,
               outside every counted window.
+ 38. bucket_invariance  after phase 30: tests/test_torch_fused_parting.py's
+              walk at the parity point in bf16 (with the fp32 and with the
+              bf16 norm statistics): the decode's U-Net evaluations at
+              decoder T=128 and T=256 under forward hooks, the first module
+              whose valid frames differ (or null), and the request's fused against
+              two-stage mel MCD and wav max |Δ|, held under the tier's bar
+              (0.15 dB); the card's nvidia-smi name and power limit
  (3b.) kernel_time at the new signatures: K1 with and without lse and K1b
               at the encoder's training shape (62,6,224,48), v20's
               (62,6,512,64) and the tp=2 halves (62,3,512,64), (62,3,224,48),
@@ -158,7 +165,7 @@ JSON line:
 
 The launch counters are set to 0 just before each main path (phases 4-5,
 synthesis; phase 8, training; each of phases 13-17, 19, 21, 22-25, 28,
-29, 30, 34, 35 and 36's in-process path) and
+29, 30, 34, 35, 36's in-process path and 38) and
 read just after: the kernels line reports those launches, by path.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -2477,6 +2484,38 @@ def phase_hw_parity(counters) -> dict:
     return out
 
 
+def phase_bucket_invariance(counters, smi: str) -> dict:
+    """tests/test_torch_fused_parting.py's walk on the card at the parity
+    point (full width, bf16, speaker 2, 40 ids): the decode at decoder
+    T=128 (the two-stage bucket) and T=256 (the fused one) with forward
+    hooks, every module of its 8 U-Net evaluations compared on the valid
+    frames, the first that differs named with its evaluation and max |Δ| /
+    max |ref| (``null`` when none does); the request's fused against
+    two-stage audio, mel MCD and wav max |Δ|, held to the tier's bar; with
+    the fp32 and the bf16 norm statistics (``hw_parity.bucket_readings``).
+    K1 counted exactly: 4 for stage A, 96 a walked decode, 100 a request."""
+    from matcha_tpu_torch.utils import hw_parity as hp
+
+    t0 = time.perf_counter()
+    for c in counters.values():
+        c.reset()
+    runs = hp.bucket_readings("cuda")
+    del runs["threads"]
+    launches = read_counts(counters)
+    cfg, _ = hp.configs("bfloat16")
+    want = 2 * (cfg.encoder.n_layers + 2 * 8 * unet_launches(cfg) + 2 * request_launches(cfg))
+    out = {"phase": "bucket_invariance", "nvidia_smi": smi, **runs, "bar_db": hp.FUSED_MCD_BAR_DB,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(launches["masked_attention_fwd"] == want,
+          f"bucket_invariance launched K1 {launches['masked_attention_fwd']} times, not {want}")
+    for name, r in runs.items():
+        check(r["wav_samples"][0] == r["wav_samples"][1], f"{name}: fused and two-stage lengths differ")
+        check(r["mcd_db"] < hp.FUSED_MCD_BAR_DB,
+              f"{name}: fused against two-stage {r['mcd_db']:.4g} dB, first parting {r['first_parting']}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the reference's own checkpoints served with no JAX, the native batch
 # loader, the measuring modules
@@ -3114,7 +3153,7 @@ def phase_live_serving_path(tmp: str, counters) -> dict:
 
 
 def phase_live_serving(tmp: str) -> dict:
-    """``utils/live_serving_ab`` at legs 8,16 x fused 0,1, 20 users for 20 s a
+    """``utils/live_serving_ab`` at legs 8,16 x fused 0,1, 20 users for 10 s a
     cell, text buckets 64,128: the port's server booted in a subprocess per
     leg (kernels prebuilt here), ``psr/load_test.py --ids`` against it;
     every leg ok > 0, no error, finite p50/p95.  The servers' K1 launches
@@ -3125,7 +3164,7 @@ def phase_live_serving(tmp: str) -> dict:
     from matcha_tpu_torch.utils import live_serving_ab
 
     t0 = time.perf_counter()
-    with mock.patch.dict(os.environ, AB_LEGS="8,16", AB_FUSED="0,1", AB_USERS="20", AB_MINUTES="0.33",
+    with mock.patch.dict(os.environ, AB_LEGS="8,16", AB_FUSED="0,1", AB_USERS="20", AB_MINUTES="0.17",
                          AB_PORT=str(free_port()), TEXT_BUCKETS="64,128", **serve_artifacts(tmp)):
         rc, lines = run_main(live_serving_ab.main, [])
     result = json_report(lines)
@@ -3261,8 +3300,10 @@ def main() -> int:
     del synth
     torch.cuda.empty_cache()
 
-    # the hardware parity tier (it sets the counts to 0 itself)
+    # the hardware parity tier and the walk across mel buckets (each sets
+    # the counts to 0 itself)
     tools["hw_parity"] = phase_hw_parity(counters)["launches"]
+    tools["bucket_invariance"] = phase_bucket_invariance(counters, dev["nvidia_smi"])["launches"]
 
     # the chip A/B tools in-process (each sets the counts to 0 itself), then
     # the live-serving tools, whose servers run K1 in their own processes

@@ -32,6 +32,8 @@ is True (its default).  ``MatchaSynthesizer`` clears both flags on the card.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -136,12 +138,43 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
+VALID_SUM_BLOCK = 16  # frames a block of valid_frame_means sums by one reduction
+
+
+def valid_frame_means(sums, mask, per_frame: int):
+    """Means over each row's valid frames from per-frame sums ``sums`` (B,
+    T, ..., k) of ``per_frame`` elements each: (B, 1, ...) per statistic,
+    unbound from the last axis.  ``mask`` (B, T), > 0 = valid.
+
+    The padded length does not change them.  Invalid frames become exact
+    zeros; each block of ``VALID_SUM_BLOCK`` frames is summed by a reduction
+    of that fixed shape; a running sum walks the block sums in order (one
+    sequential scan per column: torch's cumsum on the CPU, and on CUDA
+    along an axis that is not the innermost) and its last element adds only
+    zeros after the block of the row's last valid frame.  A reduction over
+    the whole of T would group its terms by T and round differently in
+    every bucket.  No host sync: the shapes alone pick the padding."""
+    keep = mask > 0
+    b, t = keep.shape
+    ones = (1,) * (sums.dim() - 2)
+    v = torch.where(keep.reshape(b, t, *ones), sums, 0)
+    pad = -t % VALID_SUM_BLOCK
+    if pad:
+        v = F.pad(v, (0, 0) * (v.dim() - 2) + (0, pad))
+    blocks = v.reshape(b, (t + pad) // VALID_SUM_BLOCK, VALID_SUM_BLOCK, *v.shape[2:]).sum(2)
+    total = blocks.cumsum(1)[:, -1:]
+    count = keep.sum(1).reshape(b, 1, *ones) * per_frame
+    return (total / count).unbind(-1)
+
+
 def low_precision_stats(x, dims, stat_dtype, mask=None):
     """flax ``_compute_stats`` without fp32 promotion: mean and variance of
     x cast to ``stat_dtype`` over ``dims``, each mean summed in fp32 (float64
     for float64) and rounded to ``stat_dtype``, var = max(0, E[x²] − E[x]²)
-    in ``stat_dtype``.  ``mask`` (broadcastable, 1 = counted) restricts the
-    statistics to valid positions."""
+    in ``stat_dtype``.  A (B, T) ``mask`` (> 0 = counted) restricts the
+    statistics to the valid frames of axis 1, which ``dims`` must hold;
+    they are then summed per frame over the other ``dims`` and over frames
+    by ``valid_frame_means``, so the padded length does not change them."""
     xs = x.to(stat_dtype)
     acc = wide(stat_dtype)
     if mask is None:
@@ -151,10 +184,10 @@ def low_precision_stats(x, dims, stat_dtype, mask=None):
         mean = xs.to(acc).sum(dim=dims, keepdim=True) / count
         mean2 = xs.square().to(acc).sum(dim=dims, keepdim=True) / count
     else:
-        m = mask.to(acc)
-        count = torch.broadcast_to(m, x.shape).sum(dim=dims, keepdim=True)
-        mean = (xs.to(acc) * m).sum(dim=dims, keepdim=True) / count
-        mean2 = (xs.square().to(acc) * m).sum(dim=dims, keepdim=True) / count
+        per_frame = tuple(d for d in dims if d != 1)
+        sums = torch.stack((xs.to(acc).sum(dim=per_frame, keepdim=True),
+                            xs.square().to(acc).sum(dim=per_frame, keepdim=True)), -1)
+        mean, mean2 = valid_frame_means(sums, mask, math.prod(x.shape[d] for d in per_frame))
     mean, mean2 = mean.to(stat_dtype), mean2.to(stat_dtype)
     return mean, torch.clamp(mean2 - mean.square(), min=0.0)
 
@@ -189,28 +222,44 @@ class GroupNorm(nn.GroupNorm):
     """GroupNorm over the channels of (B, T, C) with fp32 statistics.
 
     With a (B, T) ``mask`` the statistics cover valid frames only (the JAX
-    package's ``masked_stats``); torch's own GroupNorm has no mask.  The
+    package's ``masked_stats``); torch's own GroupNorm has no mask.  They
+    are then the same numbers at any padded length (``valid_frame_means``),
+    so a row's output does not depend on its bucket or its neighbours.  The
     variance is E[x²] − E[x]², as flax computes it.
     """
+
+    def statistics(self, xg, mask=None, out_dtype=torch.float32, f32_stats=True):
+        """Mean and variance of ``xg`` (B, T, G, C/G) over time and each
+        group's channels, (B, 1, G, 1): fp32 from ``xg.float()``, or with
+        ``f32_stats=False`` in ``out_dtype`` (``low_precision_stats``)."""
+        if not f32_stats:
+            return low_precision_stats(xg, (1, 3), out_dtype, mask)
+        x32 = xg.float()
+        if mask is None:
+            b, t, _, cg = xg.shape
+            m = torch.ones((b, t, 1, 1), dtype=torch.float32, device=xg.device)
+            count = m.sum(dim=1, keepdim=True) * cg
+            mean = (x32 * m).sum(dim=(1, 3), keepdim=True) / count
+            mean2 = (x32 * x32 * m).sum(dim=(1, 3), keepdim=True) / count
+        else:
+            sums = torch.stack((x32.sum(dim=3, keepdim=True), (x32 * x32).sum(dim=3, keepdim=True)), -1)
+            mean, mean2 = valid_frame_means(sums, mask, xg.shape[3])
+        return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
     def forward(self, x, mask=None, out_dtype=torch.float32, f32_stats=True):
         b, t, c = x.shape
         g = self.num_groups
+        if mask is not None:
+            # channels innermost (a conv hands time innermost): the per-frame
+            # sums and the normalisation then run contiguous
+            x = x.to(torch.float32 if f32_stats else x.dtype, memory_format=torch.contiguous_format)
         if not f32_stats:  # statistics in out_dtype (see the module doc)
             xg = x.reshape(b, t, g, c // g)
-            m = None if mask is None else (mask > 0)[:, :, None, None]
-            mean, var = low_precision_stats(xg, (1, 3), out_dtype, m)
+            mean, var = self.statistics(xg, mask, out_dtype, f32_stats=False)
             y = normalize_low_precision(xg, mean, var, self.eps, self.weight.reshape(g, c // g),
                                         self.bias.reshape(g, c // g), out_dtype)
             return y.reshape(b, t, c)
         x32 = x.float().reshape(b, t, g, c // g)
-        if mask is None:
-            m = torch.ones((b, t, 1, 1), dtype=torch.float32, device=x.device)
-        else:
-            m = (mask > 0).to(torch.float32)[:, :, None, None]
-        count = m.sum(dim=1, keepdim=True) * (c // g)
-        mean = (x32 * m).sum(dim=(1, 3), keepdim=True) / count
-        mean2 = (x32 * x32 * m).sum(dim=(1, 3), keepdim=True) / count
-        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mean, var = self.statistics(x32, mask)
         y = ((x32 - mean) * torch.rsqrt(var + self.eps)).reshape(b, t, c)
         return (y * self.weight + self.bias).to(out_dtype)

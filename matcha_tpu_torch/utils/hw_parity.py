@@ -20,7 +20,8 @@ scipy only.
 
 ``python -m matcha_tpu_torch.utils.hw_parity [--device cpu]`` runs every
 comparison of the tier (``parity_readings``) and prints the readings as one
-JSON line; it exits 1 if a bar is missed.
+JSON line; it exits 1 if a bar is missed.  With ``--walk`` it compares the
+fused and two-stage decodes module by module instead (``bucket_readings``).
 """
 
 from __future__ import annotations
@@ -206,12 +207,14 @@ def _wav_max_abs_diff(a: np.ndarray, b: np.ndarray) -> float | None:
 
 # -- the port at the operating point ----------------------------------------
 
-def build_synthesizer(device, compute_dtype: str):
+def build_synthesizer(device, compute_dtype: str, bf16_norm_stats: bool = False):
     """The port's synthesizer on ``device`` at full width with the drawn
-    weights (``device=None``: the card)."""
+    weights (``device=None``: the card); ``bf16_norm_stats`` sets the
+    decoder's switch of that name."""
     from matcha_tpu_torch.inference import MatchaSynthesizer
 
     cfg, vcfg = configs(compute_dtype)
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, bf16_norm_stats=bf16_norm_stats))
     matcha, vocos = draw_weights()
     return MatchaSynthesizer(cfg, matcha, vocos, vcfg, device=device)
 
@@ -229,6 +232,135 @@ def synth_point(device, compute_dtype: str, fused: bool = False, ids=None, synth
     out = {"wav": res.wav, "seconds": seconds}
     if not fused:
         out.update(mel=res.mel, durations=res.durations)
+    return out
+
+
+# -- bucket invariance: the fused and two-stage decodes, module by module --
+#
+# At the operating point the two-stage path decodes at the fine bucket its
+# durations pick, 256 (decoder T=128), and the fused path at the one it
+# predicts from the text, 512 (T=256).  The JAX package's two programs give
+# bit-equal audio, and so must the port's: the masked GroupNorm's
+# statistics do not depend on the padded length
+# (``models/layers.valid_frame_means``).
+
+def stage_a(synth) -> tuple:
+    """Stage A at the operating point: (its inputs, (mu_x, durations,
+    x_mask), the total of fine frames, the two-stage fine bucket, the fused
+    one)."""
+    from matcha_tpu_torch.inference import blended_scale_correction, pick_bucket
+
+    mix = [(SPEAKER, 1.0)]
+    ids = [int(i) for i in phoneme_ids()]
+    scale = blended_scale_correction(mix)
+    tx = pick_bucket(len(ids), synth.text_buckets)
+    args = synth._stage_a_inputs([ids], [mix], [scale], 1, tx)
+    rep = synth.replicas[0]
+    enc = rep.encode(*(t.to(rep.device) for t in args))
+    total = int(enc[1].sum())
+    return args, enc, total, pick_bucket(total, synth.mel_fine_buckets), synth.predict_fine_bucket(tx, scale)
+
+
+def walk_decode(synth, enc, total: int, bucket: int, visit) -> torch.Tensor:
+    """The decode at fine ``bucket`` as the two-stage path runs it, with
+    ``visit(evaluation, name, "in" or "out", module, tensors)`` called on
+    every estimator module's tensor inputs and output, in call order, in
+    each U-Net evaluation of the ODE; returns the mel."""
+    from matcha_tpu_torch.inference import DEFAULT_NUM_STEPS, DEFAULT_ODE_SOLVER
+
+    rep, est = synth.replicas[0], synth.model.decoder.estimator
+    evaluation = [-1]
+    hooks = [est.register_forward_pre_hook(lambda m, inp: evaluation.__setitem__(0, evaluation[0] + 1))]
+    for name, mod in est.named_modules():
+        if name:
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, inp, name=name: visit(evaluation[0], name, "in", m,
+                                                [t for t in inp if torch.is_tensor(t)])))
+            hooks.append(mod.register_forward_hook(
+                lambda m, inp, out, name=name: visit(evaluation[0], name, "out", m,
+                                                     [out] if torch.is_tensor(out) else [])))
+    mu_x, durations, x_mask = enc
+    try:
+        mel, _, _ = rep.decode(mu_x, durations, x_mask, torch.tensor([total], device=mu_x.device),
+                               y_fine_len=bucket, n_timesteps=DEFAULT_NUM_STEPS, solver=DEFAULT_ODE_SOLVER)
+    finally:
+        for h in hooks:
+            h.remove()
+    return mel
+
+
+def valid_pair(x: torch.Tensor, y: torch.Tensor, t: int, valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A tensor of the decode at decoder length ``t`` and its counterpart
+    of the other, in fp32, cut to the ``valid`` frames where their shapes
+    differ: along axis 1, at t, t/2 or t/4, where ``Downsample1D`` leaves
+    ceil(valid/2) and ceil(valid/4)."""
+    if x.shape != y.shape:
+        n = -(-valid // (t // x.shape[1]))
+        x, y = x[:, :n], y[:, :n]
+    return x.float(), y.float()
+
+
+def bucket_walk(synth) -> dict:
+    """The decode at the two paths' buckets, compared on the valid frames
+    module by module through every U-Net evaluation: the buckets, the
+    evaluations and records compared, the first record whose valid frames
+    differ (its evaluation, module, "in" or "out", type and max |Δ| / max
+    |ref|) or ``None`` when none does, and whether the mels agree."""
+    from matcha_tpu_torch.inference import align_prior
+
+    _, enc, total, two_stage, fused = stage_a(synth)
+    shapes = {}
+    for bucket in (two_stage, fused):
+        mu_y, y_mask = align_prior(enc[0], enc[1], torch.tensor([total], device=enc[0].device), bucket)
+        shapes[bucket] = (mu_y.shape[1], int(y_mask.sum()))
+    (t, valid), (t_fused, _) = shapes[two_stage], shapes[fused]
+    ref = []
+    mel_a = walk_decode(synth, enc, total, two_stage,
+                        lambda k, name, kind, mod, xs: ref.append((k, name, kind, [x.clone() for x in xs])))
+    seen, parting = [0], []
+
+    def compare(k, name, kind, mod, ys):
+        i = seen[0]
+        seen[0] += 1
+        if parting:
+            return
+        if ref[i][:3] != (k, name, kind):
+            raise RuntimeError(f"the two decodes called different modules at record {i}")
+        pairs = [valid_pair(x, y, t, valid) for x, y in zip(ref[i][3], ys)]
+        if not all(torch.equal(x, y) for x, y in pairs):
+            rel = max(float((x - y).abs().max() / x.abs().max().clamp(min=1e-30)) for x, y in pairs)
+            parting.append({"evaluation": k, "module": name, "kind": kind, "type": type(mod).__name__,
+                            "max_rel_diff": rel})
+
+    mel_b = walk_decode(synth, enc, total, fused, compare)
+    if seen[0] != len(ref):
+        raise RuntimeError(f"the decodes made {len(ref)} and {seen[0]} records")
+    return {"fine_buckets": [two_stage, fused], "decoder_T": [t, t_fused], "valid_frames": valid,
+            "evaluations": ref[-1][0] + 1, "records": len(ref), "first_parting": parting[0] if parting else None,
+            "mel_equal": torch.equal(*valid_pair(mel_a, mel_b, t, valid))}
+
+
+def fused_pair(device, compute_dtype: str, synth) -> dict:
+    """The operating point's request two-stage and fused on ``synth``: mel
+    MCD (``utils.mcd.mcd_dtw``, mel basis) and wav max |Δ| between them."""
+    from matcha_tpu_torch.utils.mcd import mcd_dtw
+
+    two = synth_point(device, compute_dtype, synth=synth)
+    fused = synth_point(device, compute_dtype, fused=True, synth=synth)
+    return {"mcd_db": mcd_dtw(two["wav"], fused["wav"], basis="mel", device=device),
+            "wav_max_abs_diff": _wav_max_abs_diff(two["wav"], fused["wav"]),
+            "wav_samples": [int(len(two["wav"])), int(len(fused["wav"]))]}
+
+
+def bucket_readings(device) -> dict:
+    """``bucket_walk`` and ``fused_pair`` at the operating point in bf16,
+    with the fp32 and with the bf16 norm statistics, and the host's torch
+    threads (the CPU's GEMMs split their work by shape and thread count)."""
+    out = {"threads": torch.get_num_threads()}
+    for name, bf16_stats in (("f32_norm_stats", False), ("bf16_norm_stats", True)):
+        synth = build_synthesizer(device, "bfloat16", bf16_norm_stats=bf16_stats)
+        out[name] = {**bucket_walk(synth), **fused_pair(device, "bfloat16", synth)}
+        del synth
     return out
 
 
@@ -379,7 +511,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="The hardware parity tier's readings on one device.")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     ap.add_argument("--oracle", default=str(ORACLE_PATH), help="the JAX package's oracle (.npz)")
+    ap.add_argument("--walk", action="store_true",
+                    help="instead, the fused and two-stage bf16 decodes compared module by module "
+                         "(bucket_readings); exit 1 if their MCD reaches the fused bar")
     args = ap.parse_args(argv)
+    if args.walk:
+        from matcha_tpu_torch.inference import resolve_device
+
+        readings = bucket_readings(resolve_device(args.device))
+        print(json.dumps(readings))
+        misses = [n for n, r in readings.items() if n != "threads" and not r["mcd_db"] < FUSED_MCD_BAR_DB]
+        return 1 if misses else 0
     readings = parity_readings(args.device, load_oracle(args.oracle))
     misses = bar_misses(readings)
     print(json.dumps({**readings, "bar_misses": misses}))
