@@ -22,6 +22,7 @@ from matcha_tpu_torch.models.text_encoder import TextEncoder
 from matcha_tpu_torch.ops.mas import durations_from_indices, maximum_path_indices
 from matcha_tpu_torch.text.symbols import N_VOCAB
 from matcha_tpu_torch.utils.model_math import downsample_time, sequence_mask
+from matcha_tpu_torch.utils.profiling import annotate
 
 QUANTILES = (0.5, 0.9, 0.99)
 
@@ -134,19 +135,21 @@ class MatchaTTS(nn.Module):
         if sum_over_ranks is not None:
             dens = sum_over_ranks(dens)
 
-        spk_enc, spk_dur = self.speaker_embeddings(spks)
-        mu_x, logw = self.encoder(x, x_mask, spk_enc, spk_dur, drop)
+        with annotate("matcha/train.encoder"):
+            spk_enc, spk_dur = self.speaker_embeddings(spks)
+            mu_x, logw = self.encoder(x, x_mask, spk_enc, spk_dur, drop)
 
         # ---- MAS alignment (fp32, no gradients) ----
         mu_x32 = mu_x.float()
         y_fine32 = y_fine.float()
-        with torch.no_grad():
-            log_prior = log_prior_scores(mu_x32.detach(), y_fine32)
-            idx = maximum_path_indices(log_prior, x_lengths, y_fine_lengths, cfg.mas_backend)
-            del log_prior
+        with annotate("matcha/train.mas"):
+            with torch.no_grad():
+                log_prior = log_prior_scores(mu_x32.detach(), y_fine32)
+                idx = maximum_path_indices(log_prior, x_lengths, y_fine_lengths, cfg.mas_backend)
+                del log_prior
+            mas_durations = durations_from_indices(idx, x.shape[1])
 
         # ---- duration loss (+2 keeps log targets above 1; inference undoes it) ----
-        mas_durations = durations_from_indices(idx, x.shape[1])
         logw_target = torch.log(2.0 + mas_durations) * x_mask
         dur_loss = (F.huber_loss(logw, logw_target, reduction="none",
                                  delta=cfg.duration_loss_threshold) * w[:, None]).sum()
@@ -170,12 +173,13 @@ class MatchaTTS(nn.Module):
         def velocity(xt, mask, mu, t):
             return estimator(xt, mask, mu, t, masked_norm=False, gen=drop)
 
-        diff_loss = cfm_loss(velocity, y, y_mask, mu_y, generator,
-                             sigma_min=cfg.cfm.sigma_min, use_mu_prior=cfg.cfm.use_mu_prior,
-                             t_noise=cfm_t_noise, row_weights=w, denominator=dens[2], rows=rows)
+        with annotate("matcha/train.cfm"):
+            diff_loss = cfm_loss(velocity, y, y_mask, mu_y, generator,
+                                 sigma_min=cfg.cfm.sigma_min, use_mu_prior=cfg.cfm.use_mu_prior,
+                                 t_noise=cfm_t_noise, row_weights=w, denominator=dens[2], rows=rows)
 
         # abs-error quantiles, to tune the Huber thresholds (matcha_tts.py:166-182)
-        with torch.no_grad():
+        with annotate("matcha/train.diagnostics"), torch.no_grad():
             dur_err = torch.where(x_mask > 0, (logw - logw_target).abs(), 0.0)
             prior_err = (mu_y_fine - y_fine32).abs() * y_fine_mask[..., None]
             diagnostics = {}

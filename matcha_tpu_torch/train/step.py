@@ -56,6 +56,7 @@ from matcha_tpu_torch.models.config import MatchaConfig
 from matcha_tpu_torch.models.matcha import MatchaTTS, init_params
 from matcha_tpu_torch.parallel import mesh, sharding
 from matcha_tpu_torch.train.optim import AdamW, OptimizerConfig, OptState, global_norm
+from matcha_tpu_torch.utils.profiling import annotate
 from matcha_tpu_torch.weights import decay_mask
 
 
@@ -200,13 +201,25 @@ class TrainStep:
         """Updates ``state`` in place; returns it and the metrics (device
         scalars).  ``loss_kwargs`` (``deterministic``, ``cfm_t_noise``) pass
         to ``compute_losses``."""
-        losses = self._losses(state.params, batch, step_seed(seed, state.step),
-                              step_seed(seed, state.step, self.data_index), loss_kwargs)
-        names = list(state.params)
-        grads = torch.autograd.grad(losses["loss"], [state.params[n] for n in names],
-                                    allow_unused=True)
-        grads = {n: torch.zeros_like(state.params[n]) if g is None else g
-                 for n, g in zip(names, grads)}
+        with annotate("matcha/train.step"):
+            with annotate("matcha/train.forward"):
+                losses = self._losses(state.params, batch, step_seed(seed, state.step),
+                                      step_seed(seed, state.step, self.data_index), loss_kwargs)
+            with annotate("matcha/train.backward"):
+                grads = self._grads(losses["loss"], state.params)
+            with annotate("matcha/train.optimizer"):
+                self.opt.update(state.params, grads, state.opt_state)
+            state.step += 1
+            with annotate("matcha/train.metrics"):
+                metrics = {**self._loss_metrics(losses), "grad_norm": self.grad_norm(grads)}
+        return state, metrics
+
+    def _grads(self, loss, params) -> dict[str, torch.Tensor]:
+        """Every parameter's gradient of ``loss`` (zeros where unused),
+        summed over the data-parallel group."""
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+        grads = {n: torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)}
         if self.data_parallel:
             mesh.all_reduce_sum_(list(grads.values()), self.dp_group)
         if self.mesh2d is not None and self.mesh2d.tp > 1:
@@ -218,10 +231,7 @@ class TrainStep:
             mesh.all_reduce_sum_(replicated, self.mesh2d.tp_group)
             for g in replicated:
                 g.div_(self.mesh2d.tp)
-        self.opt.update(state.params, grads, state.opt_state)
-        state.step += 1
-        metrics = {**self._loss_metrics(losses), "grad_norm": self.grad_norm(grads)}
-        return state, metrics
+        return grads
 
     @torch.no_grad()
     def eval_step(self, params, batch: Batch, seed: int, **loss_kwargs):

@@ -58,6 +58,7 @@ from matcha_tpu_torch.train.checkpoint import (
 )
 from matcha_tpu_torch.train.optim import OptimizerConfig
 from matcha_tpu_torch.train.step import Batch, TrainState, TrainStep, step_seed
+from matcha_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -277,7 +278,8 @@ class Trainer:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with annotate("matcha/loader.wait"):
+                    item = q.get()
                 if item is done:
                     return
                 if isinstance(item, BaseException):

@@ -14,7 +14,9 @@ AdamW) on a synthetic batch at one bucket and reports:
   * device busy ms a step, device events and idle share, and the 5 kernels
     that take the most time, from a ``torch.profiler`` trace read by
     ``utils/trace_analysis.device_stats`` (idle share against the wall
-    median, taken with the profiler off)
+    median, taken with the profiler off), and the step's split by its
+    program spans (``trace_analysis.span_stats``: wall ms and device events
+    of forward, MAS, backward, optimizer, ...)
   * ``mfu``: ``utils/flops.train_step_flops`` (forward and backward
     products) over the wall median over the H100's dense bf16 peak
 
@@ -130,6 +132,7 @@ def main(argv=None) -> int:
                 for _ in range(TRACE_ITERS):
                     state, m = ts.train_step(state, batch, 0)
             stats = trace_analysis.device_stats(logdir)
+            spans = trace_analysis.span_stats(logdir)
         if not stats["device_events"]:
             raise RuntimeError(f"no device event in the trace (planes {stats['device_planes']})")
         n = TRACE_ITERS
@@ -138,6 +141,7 @@ def main(argv=None) -> int:
                  "device_events_per_step": stats["device_events"] / n,
                  "top_kernels": [[name[:90], m["ms"] / n, m["count"] / n]
                                  for name, m in list(stats["modules"].items())[:TOP_KERNELS]],
+                 "spans": spans,
                  "method": "torch.profiler trace (utils/trace_analysis.device_stats); the step branches on "
                            "the host (train/optim.py), so it is not captured as a CUDA graph",
                  "trace_iters": n}

@@ -6,9 +6,10 @@ The port's counterpart of ``matcha_tpu/utils/profiling.py``:
     activity, plus CUDA activity where a card is present; on exit the
     timeline is written into ``logdir`` as a Chrome trace, which
     ``utils/trace_analysis.py`` reads and chrome://tracing or Perfetto show
-  * ``annotate(name)`` — a named range in the trace
-  * ``StageTimer`` — per-stage wall-time accounting with RTF, the same
-    per-synthesis numbers the reference prints (cli.py:122-123)
+  * ``annotate(name)`` — the program's span: a named range in the trace
+    while a torch profiler records on the calling thread, and nothing
+    otherwise.  Program span names start with ``matcha/``; the spans of
+    the training path are read by ``trace_analysis.span_stats``
 """
 
 from __future__ import annotations
@@ -16,10 +17,11 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -38,33 +40,10 @@ def trace(logdir: str):
 
 
 def annotate(name: str):
-    return record_function(name)
-
-
-class StageTimer:
-    """Accumulates wall time per named stage; prints an RTF-style report."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self, audio_seconds: float | None = None) -> str:
-        lines = []
-        total = sum(self.totals.values())
-        for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            line = f"{name:>20}: {t*1000:8.1f} ms  x{self.counts[name]}"
-            if audio_seconds:
-                line += f"  (RTF {t/audio_seconds:.4f})"
-            lines.append(line)
-        if audio_seconds:
-            lines.append(f"{'TOTAL':>20}: {total*1000:8.1f} ms  (RTF {total/audio_seconds:.4f})")
-        return "\n".join(lines)
+    """A ``record_function`` range named ``name`` while a profiler records
+    on this thread (on the trace's clock, inside the range that encloses it
+    on the thread); otherwise one shared null context, for the cost of one
+    call.  The profiler's state is per thread: a thread started from Python
+    (the trainer's prefetch worker) records nothing, while the autograd
+    engine's threads take the state of the thread that runs the backward."""
+    return record_function(name) if torch._C._autograd._profiler_enabled() else _NO_SPAN

@@ -1,7 +1,5 @@
 """The port's measuring modules: ``utils/{profiling,trace_analysis,probe,backend_wait}.py``.
 
-- ``StageTimer``'s report equals the JAX package's, character for
-  character, under the same recorded totals.
 - ``device_stats`` on a hand-built Chrome trace: kernels overlapping on two
   streams count once (the union), memcpy and memset count, host events do
   not; per-kernel totals and the wall span are exact sums of the events.
@@ -23,26 +21,7 @@ from types import SimpleNamespace as NS
 import pytest
 import torch
 
-from matcha_tpu.utils.profiling import StageTimer as JaxStageTimer
 from matcha_tpu_torch.utils import backend_wait, probe, profiling, trace_analysis
-
-
-@pytest.mark.parametrize("audio_seconds", [None, 2.5])
-def test_stage_timer_report_equals_jax(audio_seconds):
-    ours, theirs = profiling.StageTimer(), JaxStageTimer()
-    for timer in (ours, theirs):
-        for name, t, n in (("encode", 0.0123, 2), ("decode", 0.4567, 2), ("vocode", 0.089, 1)):
-            timer.totals[name], timer.counts[name] = t, n
-    assert ours.report(audio_seconds) == theirs.report(audio_seconds)
-    assert ours.report(audio_seconds).splitlines()[0].strip().startswith("decode")
-
-
-def test_stage_timer_times_a_stage():
-    timer = profiling.StageTimer()
-    for _ in range(3):
-        with timer.stage("x"):
-            pass
-    assert timer.counts["x"] == 3 and timer.totals["x"] >= 0.0
 
 
 def _event(name, cat, ts, dur, pid=0, tid=7):
