@@ -162,6 +162,16 @@ JSON line:
               at the encoder's training shape (62,6,224,48), v20's
               (62,6,512,64) and the tp=2 halves (62,3,512,64), (62,3,224,48),
               each checked against its plain version, beside SDPA
+ 39. adamw    after phase 3: the multi-tensor AdamW (ops/adamw.py) against
+              the plain loop at MatchaConfig()'s 387 parameters, 4 updates
+              (clipped, not clipped, a NaN skipped, again) for the recipe,
+              the fine-tune's trainable mask, an external norm and two
+              accumulated gradients: p's change, mu, nu and the norm, the
+              four device scalars equal, no sync under
+              set_sync_debug_mode("error"), one launch of each wrapper an
+              update; CPU, strided and bf16 gradients refused; the update's
+              device time beside its bound, the loop and torch._fused_adamw_.
+              Phase 8 holds one launch of each wrapper to every step
 
 The launch counters are set to 0 just before each main path (phases 4-5,
 synthesis; phase 8, training; each of phases 13-17, 19, 21, 22-25, 28,
@@ -874,6 +884,182 @@ def phase_kernel_attributes() -> dict:
     return out
 
 
+# p's change, mu and nu against the loop given the kernels' norm; the norm
+# against the loop's own (fp32 squares summed in another order)
+ADAMW_TOL = {"change": 1e-5, "mu": 1e-6, "nu": 1e-6, "norm": 1e-6}
+
+
+def adamw_counters():
+    from matcha_tpu_torch.ops import adamw
+
+    return {"adamw_norm": adamw.adamw_norm_count, "adamw_update": adamw.adamw_update_count}
+
+
+def max_rel(got: dict, ref: dict) -> float:
+    """max |got − ref| over max |ref|, over every tensor of two name-keyed dicts."""
+    diff = max(float((got[n] - ref[n]).abs().max()) for n in ref)
+    scale = max(float(ref[n].abs().max()) for n in ref)
+    return diff / scale if scale else diff
+
+
+def phase_adamw() -> dict:
+    """The multi-tensor AdamW (ops/adamw.py) against the plain loop
+    (AdamW.apply_plain) on the card, at MatchaConfig()'s parameters.
+
+    Four updates from the same weights and gradients on each side: one
+    clipped (norm 10), one not (norm 1), one with a NaN (skipped), one at
+    norm 3; four optimizers: the training recipe's, the fine-tune's
+    trainable mask, an external norm (tensor parallelism's route) and two
+    accumulated gradients (with the external norm).  Where the kernels take
+    the norm themselves, the loop is given their norm, and their norm is
+    held against the loop's own: one ulp of the norm moves p by one
+    rounding, far more than 1e-5 of an update of about lr (the loop on its
+    own norm is read beside, as ``own_norm``).  The fused updates run under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Then the update timed with
+    CUDA events beside its bound, the plain loop and ``torch._fused_adamw_``
+    (no clip, no norm), and five traced calls' device events by kernel."""
+    import dataclasses
+
+    from matcha_tpu_torch.finetune_speaker import trainable_mask_for_speaker
+    from matcha_tpu_torch.models.config import MatchaConfig
+    from matcha_tpu_torch.models.matcha import init_params
+    from matcha_tpu_torch.train.optim import AdamW, OptimizerConfig, global_norm
+    from matcha_tpu_torch.weights import decay_mask
+
+    cfg = MatchaConfig()
+    p0 = {n: t.to("cuda", torch.float32).contiguous()
+          for n, t in init_params(cfg, torch.Generator().manual_seed(0)).items()}
+    n_elems = sum(p.numel() for p in p0.values())
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def grads_at(norm: float, nan: bool = False) -> dict:
+        g = {n: torch.randn(p.shape, generator=gen, device="cuda") for n, p in p0.items()}
+        scale = norm / float(global_norm(g.values()))
+        g = {n: t * scale for n, t in g.items()}
+        if nan:
+            g[next(iter(g))].view(-1)[0] = float("nan")
+        return g
+
+    steps = [grads_at(10.0), grads_at(1.0), grads_at(1.0, nan=True), grads_at(3.0)]
+    opt_cfg = OptimizerConfig()
+
+    def external(g):
+        return global_norm(g.values())
+
+    runs = {"recipe": (opt_cfg, None, None),
+            "trainable_mask": (opt_cfg, trainable_mask_for_speaker(cfg), None),
+            "external_norm": (opt_cfg, None, external),
+            "accumulate_2": (dataclasses.replace(opt_cfg, accumulate_grad_batches=2), None, external)}
+    counters = adamw_counters()
+    report = {}
+    for name, (ocfg, trainable, norm) in runs.items():
+        sides = {}
+        for side in ("fused", "plain", "own_norm"):
+            opt = AdamW(ocfg, decay_mask(cfg), trainable, norm=norm)
+            if side != "fused":
+                opt._apply = opt.apply_plain
+            params = {n: p.clone() for n, p in p0.items()}
+            sides[side] = (opt, params, opt.init(params))
+        per_step = []
+        for i, grads in enumerate(steps):
+            for c in counters.values():
+                c.reset()
+            torch.cuda.synchronize()
+            opt, params, state = sides["fused"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                n_fused = opt.update(params, grads, state)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            applies = ocfg.accumulate_grad_batches == 1 or i % 2 == 1
+            launched = {n: c.launches for n, c in counters.items()}
+            opt, params, state = sides["plain"]
+            if norm is None:
+                opt.norm = lambda g, t=n_fused: t
+            n_plain = opt.update(params, grads, state)
+            opt, params, state = sides["own_norm"]
+            n_own = opt.update(params, grads, state)
+            torch.cuda.synchronize()
+            (_, pf, sf), (_, pp, sp), (_, po, _) = sides["fused"], sides["plain"], sides["own_norm"]
+            row = {"launches_ok": launched == {"adamw_norm": int(applies), "adamw_update": int(applies)},
+                   "returns_ok": (n_fused is None) == (n_plain is None) == (n_own is None),
+                   "change": max_rel({n: pf[n] - p0[n] for n in p0}, {n: pp[n] - p0[n] for n in p0}),
+                   "mu": max_rel(sf.mu, sp.mu), "nu": max_rel(sf.nu, sp.nu), "norm": 0.0,
+                   "own_norm_change": max_rel({n: pf[n] - p0[n] for n in p0}, {n: po[n] - p0[n] for n in p0}),
+                   "scalars_equal": all(int(getattr(sf, k)) == int(getattr(sp, k)) for k in
+                                        ("count", "notfinite_count", "last_finite", "total_notfinite"))}
+            if n_fused is not None:
+                fused_v, own_v = float(n_fused), float(n_own)
+                row["norm"] = (abs(fused_v - own_v) / own_v if math.isfinite(own_v)
+                               else float(math.isfinite(fused_v)))
+            per_step.append(row)
+        report[name] = {"steps": per_step, "count": int(sides["fused"][2].count),
+                        "max_rel": {k: max(r[k] for r in per_step) for k in ADAMW_TOL}}
+    emit({"phase": "adamw_readings", "runs": report})
+    for name, r in report.items():
+        for i, row in enumerate(r["steps"]):
+            check(row["launches_ok"] and row["returns_ok"], f"adamw {name} step {i}: launches or returned norm")
+            check(row["scalars_equal"], f"adamw {name} step {i}: count, notfinite_count, last_finite "
+                                        "or total_notfinite differ")
+        for k, tol in ADAMW_TOL.items():
+            check(r["max_rel"][k] <= tol, f"adamw {name}: {k} differs by {r['max_rel'][k]:.3g} relative "
+                                          f"(limit {tol})")
+    # recipe: steps 0, 1 and 3 applied; accumulated: (0, 1) applied, (2, 3) holds the NaN
+    check(report["recipe"]["count"] == 3 and report["accumulate_2"]["count"] == 1,
+          f"adamw: step counts {report['recipe']['count']}, {report['accumulate_2']['count']}")
+
+    # the wrapper refuses what the kernels cannot take
+    opt = AdamW(opt_cfg, decay_mask(cfg))
+    params = {n: p.clone() for n, p in p0.items()}
+    state = opt.init(params)
+    first = next(iter(p0))
+    refused = {}
+    for what, bad in (("cpu_grad", steps[1][first].cpu()),
+                      ("strided_grad", torch.zeros(2 * p0[first].numel(), device="cuda")[::2].view(p0[first].shape)),
+                      ("bf16_grad", steps[1][first].bfloat16())):
+        try:
+            opt.update(params, {**steps[1], first: bad}, state)
+            refused[what] = False
+        except ValueError:
+            refused[what] = True
+    check(all(refused.values()), f"adamw: the wrapper took {refused}")
+
+    # time: the kernels (one wrapper call) against the bound, the loop and torch._fused_adamw_
+    opt = AdamW(opt_cfg, decay_mask(cfg))
+    params = {n: p.clone() for n, p in p0.items()}
+    state = opt.init(params)
+    grads = steps[1]
+    fused_ms = cuda_ms(lambda: opt.update(params, grads, state))
+    plain = AdamW(opt_cfg, decay_mask(cfg))
+    pparams = {n: p.clone() for n, p in p0.items()}
+    pstate = plain.init(pparams)
+    plain_ms = cuda_ms(lambda: plain.apply_plain(pparams, grads, pstate), reps=5, per_rep=1, warmup=1)
+    lib = [list(pparams.values()), list(grads.values()), list(pstate.mu.values()), list(pstate.nu.values())]
+    lib_steps = [torch.ones((), device="cuda") for _ in lib[0]]
+    library_ms = cuda_ms(lambda: torch._fused_adamw_(
+        *lib, [], lib_steps, lr=opt_cfg.lr, beta1=opt_cfg.b1, beta2=opt_cfg.b2,
+        weight_decay=opt_cfg.weight_decay, eps=opt_cfg.eps, amsgrad=False, maximize=False))
+    traced = device_breakdown(lambda: [opt.update(params, grads, state) for _ in range(5)],
+                              kernels=("adamw_norm_partials", "adamw_norm_finish", "adamw_update"))
+    bound_ms = 32 * n_elems / PEAK_BYTES * 1e3  # update 28 B an element, norm 4
+    out = {"phase": "adamw", "leaves": len(p0), "elements": n_elems,
+           "chunks": int(opt.fused._chunks.shape[0]), "tolerance": ADAMW_TOL,
+           "runs": {name: {"max_rel": r["max_rel"], "count": r["count"],
+                           "own_norm_change": max(row["own_norm_change"] for row in r["steps"])}
+                    for name, r in report.items()},
+           "sync_debug": "error (no sync raised)", "refused": refused,
+           "ms": fused_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+           "update_bound_ms": 28 * n_elems / PEAK_BYTES * 1e3, "plain_ms": plain_ms,
+           "plain_note": "device time of the loop's 9.7 k launches, paced by the host",
+           "library_ms": library_ms, "library": "torch._fused_adamw_ (no clip, no norm)",
+           "traced_5_calls": {"device_events": traced["device_events"], "busy_ms": traced["device_busy_ms"],
+                              "kernels": traced["kernels"]}}
+    emit(out)
+    del p0, steps, params, pparams, lib
+    torch.cuda.empty_cache()
+    return out
+
+
 def write_corpus(root, n_feats: int, seed: int = 0):
     """~62 utterances with coarse lengths 490-512 (bucket 512, B=62) and 29
     with 1000-1088 (bucket 1088, B=29), about 5 fine frames per token,
@@ -973,6 +1159,7 @@ def phase_train(tmp: str) -> dict:
     cfg = bf16_train_config()
     filelist, mel_dir = write_corpus(tmp, cfg.n_feats)
     counters = train_counters()
+    opt_counters = adamw_counters()
     tcfg = TrainerConfig(output_dir=os.path.join(tmp, "run"), max_epochs=-1, log_every_n_steps=1,
                          checkpoint_every_n_epochs=100, seed=1234)
     trainer = Trainer(cfg, OptimizerConfig(), tcfg, TextMelDataset(filelist, mel_dir),
@@ -983,6 +1170,7 @@ def phase_train(tmp: str) -> dict:
     def timed_step(state, batch, seed):
         torch.cuda.synchronize()
         before = {n: c.launches for n, c in counters.items()}
+        opt_before = {n: c.launches for n, c in opt_counters.items()}
         t0 = time.perf_counter()
         state, metrics = real_step(state, batch, seed)
         torch.cuda.synchronize()
@@ -992,6 +1180,7 @@ def phase_train(tmp: str) -> dict:
                         "text_bucket": batch.x.shape[1], "seconds": seconds,
                         "coarse_frames": real_frames,
                         "launches": {n: c.launches - before[n] for n, c in counters.items()},
+                        "optimizer_launches": {n: c.launches - opt_before[n] for n, c in opt_counters.items()},
                         **{k: float(v) for k, v in metrics.items()}})
         emit({"phase": "train_step", **records[-1]})
         return state, metrics
@@ -1014,6 +1203,8 @@ def phase_train(tmp: str) -> dict:
         check(finite, f"non-finite metrics at step {r['step']}")
         want = step_launches(cfg)
         check(r["launches"] == want, f"step {r['step']} launched {r['launches']}, expected {want}")
+        check(r["optimizer_launches"] == {"adamw_norm": 1, "adamw_update": 1},
+              f"step {r['step']}: the fused AdamW ran {r['optimizer_launches']}")
     summary = {}
     for (b, t), rs in sorted(by_bucket.items()):
         steady = rs[1:]  # the first step of a bucket builds cuDNN plans and allocator pools
@@ -3230,6 +3421,7 @@ def main() -> int:
     bwd_alone = phase_bwd_kernels()
     new_sigs = phase_new_signatures_time()
     phase_kernel_attributes()
+    adamw = phase_adamw()
     counters = train_counters()
 
     # main path 1: synthesis (model + server), counts read just after
@@ -3255,10 +3447,11 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # main path 2: training (Trainer over a synthetic corpus), counts read just after
-        for c in counters.values():
+        for c in (*counters.values(), *adamw_counters().values()):
             c.reset()
         phase_train(tmp)
         training = read_counts(counters)
+        training_adamw = sum(c.launches for c in adamw_counters().values())
         for n, count in training.items():
             check(count > 0, f"the training path never launched {n}")
         phase_train_learns(tmp)
@@ -3360,6 +3553,11 @@ def main() -> int:
         kernel_entry("mas", "mas.cu", "matcha_tpu/ops/mas_pallas.py:179,189",
                      total["mas"], 0.0, mas_t, shape=[62, 224, 1024], dtype="float32",
                      error="indices equal to the plain version", launches_by_path=by_path["mas"]),
+        kernel_entry("adamw", "adamw.cu", "none (XLA fused matcha_tpu/train/optim.py's optax chain)",
+                     {"training": training_adamw}, max(max(r["max_rel"].values()) for r in adamw["runs"].values()),
+                     adamw, elements=adamw["elements"], dtype="float32",
+                     error="max |err| / max |ref| of p's change, mu, nu and the norm against the loop",
+                     launches_note="adamw_norm and adamw_update wrapper calls, one each a training step"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -34,6 +34,15 @@ long long mas_scratch_words(int batch, int tx, int ty);
 cudaError_t mas_launch(const float* value, const int* x_len, const int* y_len, int* idx,
                        uint32_t* scratch, int batch, int tx, int ty, cudaStream_t stream);
 cudaError_t mas_attributes(int tx, int ty, int* out);
+cudaError_t adamw_norm_launch(const long long* leaves, const long long* chunks, int n_chunks,
+                              float* out, const float* given_norm, int* count,
+                              int* notfinite_count, unsigned char* last_finite,
+                              int* total_notfinite, float grad_clip, float b1, float b2,
+                              int skip_nonfinite, int max_errors, cudaStream_t stream);
+cudaError_t adamw_update_launch(const long long* leaves, const long long* chunks, int n_chunks,
+                                const float* out, float one_minus_b1, float b1, float one_minus_b2,
+                                float b2, float eps, float weight_decay, float neg_lr,
+                                float grad_clip, cudaStream_t stream);
 
 namespace {
 
@@ -238,6 +247,80 @@ void mas_indices(const torch::Tensor& value, const torch::Tensor& x_lengths,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+constexpr int64_t kAdamwScalars = 8;  // adamw.cu's kScalars
+
+// leaves: contiguous (L, 4) int64 CUDA tensor, chunks: (C, 4) int64 on the
+// same device (adamw.cu's tables); out: float32 of 8 + C elements there.
+int64_t check_adamw_tables(const torch::Tensor& leaves, const torch::Tensor& chunks,
+                           const torch::Tensor& out) {
+  for (const torch::Tensor* t : {&leaves, &chunks}) {
+    TORCH_CHECK(t->is_cuda() && t->is_contiguous() && t->scalar_type() == torch::kInt64 &&
+                    t->dim() == 2 && t->size(1) == 4,
+                "AdamW tables must be contiguous (N, 4) int64 CUDA tensors");
+  }
+  TORCH_CHECK(chunks.device() == leaves.device(), "AdamW tables must share one CUDA device");
+  const int64_t n_chunks = chunks.size(0);
+  TORCH_CHECK(n_chunks < (int64_t{1} << 31), "too many AdamW chunks");
+  TORCH_CHECK(out.is_cuda() && out.device() == leaves.device() && out.is_contiguous() &&
+                  out.scalar_type() == torch::kFloat32 && out.numel() == kAdamwScalars + n_chunks,
+              "out must be a contiguous float32 tensor of 8 + C elements on the tables' device");
+  return n_chunks;
+}
+
+void check_adamw_scalar(const torch::Tensor& t, const torch::Tensor& like, torch::ScalarType dtype,
+                        const char* name) {
+  TORCH_CHECK(t.is_cuda() && t.device() == like.device() && t.numel() == 1 &&
+                  t.scalar_type() == dtype,
+              name, " must be a one-element ", c10::toString(dtype), " tensor on the tables' device");
+}
+
+// The global norm of the table's gradients (or `norm`, when it has an
+// element), the clip flag, the finite check and the bias corrections into
+// out[0..4]; count, notfinite_count, last_finite and total_notfinite (the
+// OptState's device scalars) in place.  One launch, two without `norm`.
+void adamw_norm(const torch::Tensor& leaves, const torch::Tensor& chunks, const torch::Tensor& out,
+                const torch::Tensor& norm, const torch::Tensor& count,
+                const torch::Tensor& notfinite_count, const torch::Tensor& last_finite,
+                const torch::Tensor& total_notfinite, double grad_clip, double b1, double b2,
+                bool skip_nonfinite, int64_t max_errors) {
+  const int64_t n_chunks = check_adamw_tables(leaves, chunks, out);
+  const bool given = norm.numel() > 0;
+  if (given) check_adamw_scalar(norm, leaves, torch::kFloat32, "norm");
+  check_adamw_scalar(count, leaves, torch::kInt32, "count");
+  check_adamw_scalar(notfinite_count, leaves, torch::kInt32, "notfinite_count");
+  check_adamw_scalar(last_finite, leaves, torch::kBool, "last_finite");
+  check_adamw_scalar(total_notfinite, leaves, torch::kInt32, "total_notfinite");
+
+  const c10::cuda::CUDAGuard guard(leaves.device());
+  const cudaError_t err = adamw_norm_launch(
+      reinterpret_cast<const long long*>(leaves.data_ptr<int64_t>()),
+      reinterpret_cast<const long long*>(chunks.data_ptr<int64_t>()), static_cast<int>(n_chunks),
+      out.data_ptr<float>(), given ? norm.data_ptr<float>() : nullptr, count.data_ptr<int>(),
+      notfinite_count.data_ptr<int>(), reinterpret_cast<unsigned char*>(last_finite.data_ptr<bool>()),
+      total_notfinite.data_ptr<int>(), static_cast<float>(grad_clip), static_cast<float>(b1),
+      static_cast<float>(b2), skip_nonfinite ? 1 : 0, static_cast<int>(max_errors),
+      c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == cudaSuccess, "adamw_norm launch refused: ", cudaGetErrorString(err));
+}
+
+// The AdamW update of every chunk, p, mu and nu in place, from out[0..4] as
+// adamw_norm wrote them.  The scalars are cast to fp32 here as PyTorch
+// casts a Python number in an fp32 tensor's arithmetic.
+void adamw_update(const torch::Tensor& leaves, const torch::Tensor& chunks, const torch::Tensor& out,
+                  double lr, double b1, double b2, double eps, double weight_decay,
+                  double grad_clip) {
+  const int64_t n_chunks = check_adamw_tables(leaves, chunks, out);
+  const c10::cuda::CUDAGuard guard(leaves.device());
+  const cudaError_t err = adamw_update_launch(
+      reinterpret_cast<const long long*>(leaves.data_ptr<int64_t>()),
+      reinterpret_cast<const long long*>(chunks.data_ptr<int64_t>()), static_cast<int>(n_chunks),
+      out.data_ptr<float>(), static_cast<float>(1.0 - b1), static_cast<float>(b1),
+      static_cast<float>(1.0 - b2), static_cast<float>(b2), static_cast<float>(eps),
+      static_cast<float>(weight_decay), static_cast<float>(-lr), static_cast<float>(grad_clip),
+      c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == cudaSuccess, "adamw_update launch refused: ", cudaGetErrorString(err));
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("masked_attention_fwd", &masked_attention_fwd,
         "masked self-attention forward (sm_90a), writes out (and lse) in place", py::arg("q"),
@@ -259,4 +342,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "registers, shared memory and local bytes of the MAS kernel for (tx, ty)");
   m.def("mas_indices", &mas_indices,
         "monotonic alignment search, forward DP + backtrack (sm_90a), writes idx in place");
+  m.def("adamw_norm", &adamw_norm,
+        "multi-tensor AdamW, first part: global norm, clip, finite check, bias corrections");
+  m.def("adamw_update", &adamw_update,
+        "multi-tensor AdamW, second part: p, mu, nu of every chunk in place");
 }

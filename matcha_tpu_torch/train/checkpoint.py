@@ -134,8 +134,8 @@ def train_state_from_tree(tree: Mapping, cfg: MatchaConfig, device, with_optimiz
 
     Tensors land on ``device``; params require grad.
     """
-    def to_state(subtree):
-        return {n: t.to(device) for n, t in params_from_jax(subtree, cfg).items()}
+    def to_state(subtree):  # contiguous, as the card's optimizer takes them
+        return {n: t.contiguous().to(device) for n, t in params_from_jax(subtree, cfg).items()}
 
     def scalar(value, dtype):
         return torch.tensor(np.asarray(value).item(), dtype=dtype, device=device)

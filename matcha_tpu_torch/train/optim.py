@@ -23,6 +23,12 @@ State lives on the parameters' device; the finite check and the step count
 are device tensors, so an update never waits for the device.  A gradient
 whose global norm is not finite (a NaN or inf anywhere, or an overflow of
 the squared sum) counts as non-finite.
+
+Dispatch by device: parameters on a CUDA device go through the multi-tensor
+kernels of ``ops/adamw.py`` (a fixed number of launches a step, the moments
+and the device scalars updated in place); parameters on the CPU through
+``AdamW.apply_plain``, the loop written out below, which is also the
+kernels' plain twin.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from collections.abc import Mapping
 from dataclasses import dataclass
 
 import torch
+
+from matcha_tpu_torch.ops.adamw import FusedAdamW
 
 
 @dataclass(frozen=True)
@@ -93,6 +101,7 @@ class AdamW:
         # read; None is ``global_norm`` (tensor parallelism passes the norm
         # of the whole, unsplit gradients)
         self.norm = norm
+        self.fused = FusedAdamW(self.decay, self.trainable)
 
     def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
         dev = next(iter(params.values())).device
@@ -108,8 +117,12 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
-               state: OptState) -> None:
-        """One call per training step: updates ``params`` and ``state`` in place."""
+               state: OptState) -> torch.Tensor | None:
+        """One call per training step: updates ``params`` and ``state`` in place.
+
+        Returns the global norm of ``grads`` that the clip read, a device
+        scalar; None under gradient accumulation, where the clip reads the
+        mean of k gradients (on every k-th call) and no norm of ``grads``."""
         k = self.cfg.accumulate_grad_batches
         if k > 1:
             n_acc = state.mini_step
@@ -118,15 +131,23 @@ class AdamW:
                 acc.add_((g.float() - acc) / (n_acc + 1))
             state.mini_step = (n_acc + 1) % k
             if state.mini_step != 0:
-                return
+                return None
             state.gradient_step += 1
             self._apply(params, state.acc_grads, state)
             for acc in state.acc_grads.values():
                 acc.mul_(0)  # as MultiSteps resets its accumulator: 0·acc
-            return
-        self._apply(params, grads, state)
+            return None
+        return self._apply(params, grads, state)
 
-    def _apply(self, params, grads, state: OptState) -> None:
+    def _apply(self, params, grads, state: OptState) -> torch.Tensor:
+        if next(iter(params.values())).is_cuda:
+            norm = None if self.norm is None else self.norm(grads)
+            return self.fused.step(params, grads, state, self.cfg, MAX_CONSECUTIVE_ERRORS, norm)
+        return self.apply_plain(params, grads, state)
+
+    def apply_plain(self, params, grads, state: OptState) -> torch.Tensor:
+        """The chain as a loop over the parameters, on any device: the CPU's
+        path and the kernels' plain twin.  Returns the norm it clipped by."""
         cfg = self.cfg
         names = list(params)
         g_norm = global_norm(grads[n] for n in names) if self.norm is None else self.norm(grads)
@@ -161,3 +182,4 @@ class AdamW:
             state.mu[n] = torch.where(accept, mu, state.mu[n])
             state.nu[n] = torch.where(accept, nu, state.nu[n])
         state.count = count
+        return g_norm

@@ -127,11 +127,13 @@ class TrainStep:
 
     def init_state(self, params: dict[str, torch.Tensor] | None = None,
                    generator: torch.Generator | None = None) -> TrainState:
-        """A fresh state from a state_dict, or random weights from ``generator``."""
+        """A fresh state from a state_dict, or random weights from ``generator``.
+        Every leaf contiguous, as the card's optimizer takes them (a bridged
+        state_dict holds transposed views)."""
         if params is None:
             params = init_params(self.cfg, generator or torch.Generator().manual_seed(0))
-        p = {n: t.detach().to(self.device, torch.float32).clone().requires_grad_(True)
-             for n, t in self.local_state(params).items()}
+        p = {n: t.detach().to(self.device, torch.float32).clone(memory_format=torch.contiguous_format)
+             .requires_grad_(True) for n, t in self.local_state(params).items()}
         return TrainState(p, self.opt.init(p), 0)
 
     def local_state(self, whole: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -208,10 +210,12 @@ class TrainStep:
             with annotate("matcha/train.backward"):
                 grads = self._grads(losses["loss"], state.params)
             with annotate("matcha/train.optimizer"):
-                self.opt.update(state.params, grads, state.opt_state)
+                norm = self.opt.update(state.params, grads, state.opt_state)
             state.step += 1
             with annotate("matcha/train.metrics"):
-                metrics = {**self._loss_metrics(losses), "grad_norm": self.grad_norm(grads)}
+                # the norm the clip read, where the update took one of these gradients
+                grad_norm = self.grad_norm(grads) if norm is None else norm
+                metrics = {**self._loss_metrics(losses), "grad_norm": grad_norm}
         return state, metrics
 
     def _grads(self, loss, params) -> dict[str, torch.Tensor]:
