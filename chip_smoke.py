@@ -161,7 +161,8 @@ JSON line:
  (3b.) kernel_time at the new signatures: K1 with and without lse and K1b
               at the encoder's training shape (62,6,224,48), v20's
               (62,6,512,64) and the tp=2 halves (62,3,512,64), (62,3,224,48),
-              each checked against its plain version, beside SDPA
+              each checked against its plain version, beside SDPA; then
+              the same at F5-TTS's DiT shapes (DIT_SIGNATURE_SHAPES)
  39. adamw    after phase 3: the multi-tensor AdamW (ops/adamw.py) against
               the plain loop at MatchaConfig()'s 387 parameters, 4 updates
               (clipped, not clipped, a NaN skipped, again) for the recipe,
@@ -2555,17 +2556,33 @@ def phase_durations() -> dict:
 NEW_SIGNATURE_SHAPES = [(62, 6, 224, 48), (62, 6, 512, 64), (62, 3, 512, 64), (62, 3, 224, 48)]
 
 
+# F5-TTS's DiT (16 heads of 64): the longest bucket of the f5-train cell's
+# mix and a mid one, the ladder's neighbours of each
+DIT_SIGNATURE_SHAPES = [(13, 16, 2816, 64), (13, 16, 2848, 64), (52, 16, 736, 64), (50, 16, 768, 64)]
+
+
 def phase_new_signatures_time() -> dict:
     """K1 (with and without lse) and K1b at the encoder's training shape and
     at the new paths' signatures (v20 widths, and their tp=2 halves),
     against the plain versions, timed beside SDPA's forward and backward."""
+    return time_signatures(NEW_SIGNATURE_SHAPES, "masked_attention (new signatures)")
+
+
+def phase_dit_signatures_time() -> dict:
+    """The same at the DiT's shapes (``DIT_SIGNATURE_SHAPES``)."""
+    return time_signatures(DIT_SIGNATURE_SHAPES, "masked_attention (DiT)")
+
+
+def time_signatures(shapes, label: str) -> dict:
+    """K1 (with and without lse) and K1b at ``shapes``, each checked against
+    its plain version, timed beside the plain versions and SDPA."""
     import torch.nn.functional as F
 
     from matcha_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device="cuda").manual_seed(12)
     timed = {}
-    for shape in NEW_SIGNATURE_SHAPES:
+    for shape in shapes:
         check_k1(shape, torch.bfloat16, gen)
         check_k1_lse(shape, torch.bfloat16, gen)
         check_bwd_alone(shape, torch.bfloat16, gen)
@@ -2597,9 +2614,9 @@ def phase_new_signatures_time() -> dict:
         entry["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout,
                                                                    retain_graph=True))
         timed[shape] = entry
-        emit({"phase": "kernel_time", "kernel": "masked_attention (new signatures)", "shape": list(shape),
-              "dtype": "bfloat16", **entry})
+        emit({"phase": "kernel_time", "kernel": label, "shape": list(shape), "dtype": "bfloat16", **entry})
         del plain_out, lib_out
+        torch.cuda.empty_cache()
     return timed
 
 
@@ -3420,6 +3437,7 @@ def main() -> int:
     kt = phase_training_kernels()
     bwd_alone = phase_bwd_kernels()
     new_sigs = phase_new_signatures_time()
+    phase_dit_signatures_time()
     phase_kernel_attributes()
     adamw = phase_adamw()
     counters = train_counters()

@@ -30,7 +30,7 @@ from pathlib import Path
 
 import numpy as np
 
-from matcha_tpu_torch.models.config import MatchaConfig
+from matcha_tpu_torch.models.config import DiTConfig, MatchaConfig, model_config_from_dict
 from matcha_tpu_torch.vocoder.vocos import VocosConfig
 from matcha_tpu_torch.weights import params_from_jax, vocos_params_from_jax
 
@@ -77,10 +77,10 @@ def flatten_keystr(tree: Mapping, prefix: tuple = ()) -> dict[str, object]:
     return flat
 
 
-def load_checkpoint(path: str | Path) -> tuple[dict, MatchaConfig]:
-    """Checkpoint directory → (nested numpy tree, config)."""
+def load_checkpoint(path: str | Path) -> tuple[dict, MatchaConfig | DiTConfig]:
+    """Checkpoint directory → (nested numpy tree, config of the model it holds)."""
     path = Path(path)
-    cfg = MatchaConfig.from_dict(json.loads((path / "config.json").read_text()))
+    cfg = model_config_from_dict(json.loads((path / "config.json").read_text()))
     npz = path / "state.npz"
     if not npz.exists():
         if (path / "state").exists():
@@ -133,6 +133,8 @@ def load_synthesizer(checkpoint_path: str, vocoder_path: str | None = None,
     from matcha_tpu_torch.inference import MatchaSynthesizer
 
     tree, cfg = load_checkpoint(checkpoint_path)
+    if isinstance(cfg, DiTConfig):
+        raise ValueError(f"{checkpoint_path} holds F5-TTS's DiT, which the port trains but does not serve")
     params = params_from_jax(tree["params"], cfg)
     vocos_params, vocos_cfg = None, VocosConfig()
     if vocoder_path:

@@ -1,12 +1,17 @@
 """Model hyper-parameter schema with production defaults.
 
-The port's own copy of the JAX package's schema, field for field, so a
-checkpoint's ``config.json`` reads the same in both.  Plain frozen
-dataclasses.  Defaults
-reproduce the reference production config (reference: configs/model/*.yaml,
-configs/data/corpus-24k.yaml).  Serialized into every checkpoint so inference
-can rebuild the model without external config files (reference behaviour:
-matcha/inference.py:186-197).
+``MatchaConfig`` is the port's own copy of the JAX package's schema, field
+for field, so a checkpoint's ``config.json`` reads the same in both.  Plain
+frozen dataclasses.  Defaults reproduce the reference production config
+(reference: configs/model/*.yaml, configs/data/corpus-24k.yaml).  Serialized
+into every checkpoint so inference can rebuild the model without external
+config files (reference behaviour: matcha/inference.py:186-197).
+
+``DiTConfig`` is the port's second model, F5-TTS's DiT trained by flow
+matching (``models/dit.py``), which the JAX package does not have.  Its
+``config.json`` carries ``"arch": "f5tts_dit"``; ``model_config_from_dict``
+reads either kind.  Each config's ``model_class()`` names the module it
+builds.
 """
 
 from __future__ import annotations
@@ -131,6 +136,12 @@ class MatchaConfig:
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
 
+    def model_class(self):
+        """The module this config builds: ``models/matcha.MatchaTTS``."""
+        from matcha_tpu_torch.models.matcha import MatchaTTS  # the models import this module
+
+        return MatchaTTS
+
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "MatchaConfig":
         d = dict(d)
@@ -178,3 +189,55 @@ def tiny_config(n_spks: int = 4) -> MatchaConfig:
             num_heads=2,
         ),
     )
+
+
+DIT_ARCH = "f5tts_dit"
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    """F5-TTS v1 Base (arXiv:2410.06885; SWivid/F5-TTS
+    ``src/f5_tts/configs/F5TTS_v1_Base.yaml``): the DiT's widths.  Defaults
+    are the published ones, with the port's phoneme vocabulary
+    (``text/symbols.py``'s ``N_VOCAB``) in place of F5's character set.  The module defaults the yaml does not
+    set (dropout, the guidance drops, the span, the position convs) are
+    ``models/dit.py``'s constants."""
+
+    arch: str = DIT_ARCH
+    n_feats: int = 100          # mel_dim: the Vocos-24k mel basis
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 2
+    text_dim: int = 512
+    conv_layers: int = 4        # ConvNeXt-V2 blocks of the text embedding
+    n_vocab: int = 600          # text_num_embeds; the table holds one more row, the filler 0
+    compute_dtype: str = "bfloat16"
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def model_class(self):
+        """The module this config builds: ``models/dit.F5TTS``."""
+        from matcha_tpu_torch.models.dit import F5TTS  # the models import this module
+
+        return F5TTS
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "DiTConfig":
+        d = dict(d)
+        if d.get("arch", DIT_ARCH) != DIT_ARCH:
+            raise ValueError(f"not a DiT config: arch {d['arch']!r}")
+        return cls(**d)
+
+
+def model_config_from_dict(d: dict[str, Any]) -> "MatchaConfig | DiTConfig":
+    """A ``config.json`` of either model: the DiT's names its ``arch``."""
+    return DiTConfig.from_dict(d) if d.get("arch") == DIT_ARCH else MatchaConfig.from_dict(d)
+
+
+def tiny_dit_config() -> DiTConfig:
+    """The DiT at tiny widths, fp32, for tests / CI: same topology."""
+    return DiTConfig(n_feats=8, dim=64, depth=2, heads=4, dim_head=16, text_dim=32, conv_layers=2,
+                     compute_dtype="float32")

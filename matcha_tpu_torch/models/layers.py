@@ -34,9 +34,17 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def step_seed(seed: int, step: int, *more: int) -> int:
+    """A generator seed for step ``step`` of a run seeded with ``seed``
+    (and ``more``, e.g. a rank)."""
+    words = np.random.SeedSequence([seed, step, *more]).generate_state(2, dtype=np.uint32)
+    return int(words[0]) << 32 | int(words[1])
 
 
 def dropout(x, p: float, generator: torch.Generator | None, shard: tuple[int, int, int] | None = None):

@@ -77,6 +77,35 @@ class CFM(nn.Module):
 
 
 class MatchaTTS(nn.Module):
+    # what ``train/step.py`` asks of the model class (``models/dit.F5TTS`` answers too):
+    # (key of compute_losses' result, name among the step's metrics)
+    METRICS = (("loss", "loss"), ("diff_loss", "sub_loss/diff"), ("dur_loss", "sub_loss/dur"),
+               ("prior_loss", "sub_loss/prior"))
+    PARALLEL = True      # data and tensor parallelism (``parallel/``)
+    DROPOUT_WORDS = ()   # after (seed, step, rank): the dropout masks' stream
+
+    @staticmethod
+    def init_params(cfg: MatchaConfig, generator: torch.Generator) -> dict[str, torch.Tensor]:
+        """The module's ``init_params``."""
+        return init_params(cfg, generator)
+
+    @staticmethod
+    def param_table(cfg: MatchaConfig) -> list[tuple[str, str, str]]:
+        """(torch name, flax path, layout kind) of every parameter."""
+        from matcha_tpu_torch.weights import matcha_param_table  # weights imports this module
+
+        return matcha_param_table(cfg)
+
+    @staticmethod
+    def batch_inputs(batch) -> tuple:
+        """The fields of a ``train.step.Batch`` that ``compute_losses`` takes, in order."""
+        return (batch.x, batch.x_lengths, batch.y, batch.y_lengths, batch.y_fine, batch.y_fine_lengths,
+                batch.spks)
+
+    def step_kwargs(self, seed: int, step: int, count: bool) -> dict:
+        """Keywords drawn on the host for step ``step``: none."""
+        return {}
+
     def __init__(self, cfg: MatchaConfig):
         super().__init__()
         self.cfg = cfg

@@ -19,6 +19,17 @@ process alone).  Tensor-parallel over a (data, model) grid of ranks:
 
 (``parallel/sharding.py``).  Rank 0 prints the composed config as a tree
 (``utils/print_config.py``), as the JAX entry point does.
+
+The override ``arch=f5tts_dit`` trains F5-TTS v1 Base's DiT instead
+(``models/dit.py``; one device, no data or tensor parallelism), with F5's
+recipe as the preset under the command line's own overrides
+(``DIT_PRESET``: AdamW at 7.5e-5, b2 0.999, weight decay 0.01 on every
+leaf, clip 1.0, 38,400 frames a batch).  Its widths are ``DiTConfig``'s
+published ones; ``dit.<field>=...`` overrides one, and the ``model:``
+section is not read:
+
+    python -m matcha_tpu_torch.train arch=f5tts_dit data.train_filelist_path=... \
+        data.mel_dir=... [dit.depth=...]
 """
 
 from __future__ import annotations
@@ -29,21 +40,40 @@ import os
 from pathlib import Path
 
 from matcha_tpu_torch.data.dataset import TextMelDataset
-from matcha_tpu_torch.models.config import DataStatistics, MatchaConfig
+from matcha_tpu_torch.models.config import DIT_ARCH, DataStatistics, DiTConfig, MatchaConfig
 from matcha_tpu_torch.train.optim import OptimizerConfig
 from matcha_tpu_torch.train.trainer import Trainer, TrainerConfig
 from matcha_tpu_torch.utils.configs import compose
 from matcha_tpu_torch.utils.print_config import print_config
 
 
-def build_model_config(cfg: dict) -> MatchaConfig:
-    """YAML ``model:`` section → MatchaConfig, including nested sections.
+# the overrides ``arch=f5tts_dit`` puts under the command line's (F5TTS_v1_Base.yaml's recipe)
+DIT_PRESET = ("optimizer.lr=7.5e-5", "optimizer.weight_decay=0.01", "optimizer.b2=0.999",
+              "optimizer.grad_clip=1.0", "data.max_frames_per_batch=38400", "trainer.use_mesh=false")
+
+
+def build_dit_config(cfg: dict) -> DiTConfig:
+    """The ``dit:`` section → DiTConfig (published widths where unset; the
+    mel width from ``data.n_feats``); unknown keys raise."""
+    d = dict(cfg.get("dit", {}))
+    unknown = set(d) - {f.name for f in dataclasses.fields(DiTConfig)}
+    if unknown:
+        raise ValueError(f"unknown dit config keys: {sorted(unknown)}")
+    d.setdefault("n_feats", int(cfg.get("data", {}).get("n_feats", DiTConfig.n_feats)))
+    return DiTConfig.from_dict(d)
+
+
+def build_model_config(cfg: dict) -> MatchaConfig | DiTConfig:
+    """YAML ``model:`` section → MatchaConfig, including nested sections;
+    with ``arch: f5tts_dit``, the ``dit:`` section → DiTConfig.
 
     Nested ``encoder`` / ``duration_predictor`` / ``decoder`` / ``cfm``
     overlays merge field-by-field onto the defaults (the reference's
     experiment overlays override these freely, e.g. v19's decoder widening);
     unknown keys raise instead of silently vanishing.
     """
+    if cfg.get("arch") == DIT_ARCH:
+        return build_dit_config(cfg)
     m = dict(cfg.get("model", {}))
     stats = cfg.get("data", {}).get("data_statistics", {})
     base = MatchaConfig()
@@ -142,7 +172,8 @@ def default_device() -> str | None:
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="Train MatchaTTS-24k with PyTorch")
+    parser = argparse.ArgumentParser(
+        description="Train MatchaTTS-24k (or, with arch=f5tts_dit, F5-TTS's DiT) with PyTorch")
     parser.add_argument(
         "--config",
         default=str(
@@ -154,7 +185,10 @@ def main(argv=None):
     )
     args = parser.parse_args(argv)
 
-    cfg = compose(args.config, args.overrides)
+    overrides = list(args.overrides)
+    if f"arch={DIT_ARCH}" in overrides:
+        overrides = [*DIT_PRESET, *overrides]
+    cfg = compose(args.config, overrides)
     if os.environ.get("RANK", "0") == "0":
         print_config(cfg, title="matcha_tpu_torch.train")
     trainer = build_trainer(cfg)

@@ -11,6 +11,9 @@ is a checkpoint of the JAX trainer (through ``tools/
 convert_orbax_checkpoint.py --to-orbax`` where that trainer reads orbax
 only): the parameters in the flax layout (``weights.params_to_jax``), the
 optimizer state where optax keeps it, ``['step']`` and ``['epoch']``.
+A DiT's checkpoint (``DiTConfig``) has the same key paths, its
+parameters nested by their torch names (``F5TTS.param_table``),
+and ``"arch": "f5tts_dit"`` in its ``config.json``.
 
 The optax chain of ``matcha_tpu/train/optim.py`` is
 ``MultiSteps(apply_if_finite(chain(chain(clip, adamw), masked(zero))))``,
@@ -52,14 +55,14 @@ import numpy as np
 import torch
 
 from matcha_tpu_torch.checkpoint import Attr, flatten_keystr
-from matcha_tpu_torch.models.config import MatchaConfig
+from matcha_tpu_torch.models.config import DiTConfig, MatchaConfig
 from matcha_tpu_torch.train.optim import AdamW, OptState
 from matcha_tpu_torch.weights import flatten_tree, params_from_jax, params_to_jax, unflatten_tree
 
 SPEAKER_TABLES = ("speaker_embeddings_enc", "speaker_embeddings_dur")
 
 
-def save_tree(path: str | Path, tree: Mapping, cfg: MatchaConfig) -> None:
+def save_tree(path: str | Path, tree: Mapping, cfg: MatchaConfig | DiTConfig) -> None:
     """A nested tree of arrays + its config → a flat checkpoint directory."""
     path = Path(path).absolute()
     path.mkdir(parents=True, exist_ok=True)
@@ -72,7 +75,7 @@ def _i32(value) -> np.ndarray:
     return np.asarray(int(value), np.int32)
 
 
-def optax_state_tree(opt_state: OptState, cfg: MatchaConfig, *, skip_nonfinite: bool = True,
+def optax_state_tree(opt_state: OptState, cfg: MatchaConfig | DiTConfig, *, skip_nonfinite: bool = True,
                      masked: bool = False) -> dict:
     """``OptState`` → the optax chain's state tree, keyed as the JAX trainer's
     (see the module docstring)."""
@@ -95,7 +98,7 @@ def optax_state_tree(opt_state: OptState, cfg: MatchaConfig, *, skip_nonfinite: 
 
 
 def save_checkpoint(path: str | Path, params, opt_state: OptState, step: int, epoch: int,
-                    cfg: MatchaConfig, optimizer: AdamW | None = None) -> None:
+                    cfg: MatchaConfig | DiTConfig, optimizer: AdamW | None = None) -> None:
     """A training state → a flat checkpoint in the JAX trainer's key paths.
 
     ``optimizer`` tells the chain's shape (finite check, trainable mask);
@@ -129,7 +132,7 @@ def optax_state_parts(opt_tree: Mapping) -> tuple[Mapping, Mapping, Mapping]:
     return node[1][0], finite, multi
 
 
-def train_state_from_tree(tree: Mapping, cfg: MatchaConfig, device, with_optimizer: bool = True):
+def train_state_from_tree(tree: Mapping, cfg: MatchaConfig | DiTConfig, device, with_optimizer: bool = True):
     """A loaded checkpoint tree → (params, OptState or None, step, epoch).
 
     Tensors land on ``device``; params require grad.

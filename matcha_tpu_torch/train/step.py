@@ -1,14 +1,26 @@
-"""One training step: forward (encoder + MAS + CFM) → backward → clip → AdamW.
+"""One training step: forward → backward → clip → AdamW, for either model.
 
-Counterpart of ``matcha_tpu/train/step.py``.  The state is a {name: tensor}
+The model is the class the config names (``cfg.model_class()``):
+``MatchaConfig`` builds MatchaTTS (encoder + MAS + CFM; counterpart of
+``matcha_tpu/train/step.py``), ``DiTConfig`` builds F5-TTS's DiT
+(``models/dit.py``: text embedding, DiT, flow matching with infilling spans
+and guidance drops), which the JAX package does not have.  The step asks
+the class, never which model it is, for what differs: ``init_params``,
+``batch_inputs`` (the batch fields it takes), ``step_kwargs`` (draws made
+on the host: the DiT's guidance drops, counted in ``F5TTS.dropped``),
+``METRICS`` (the losses it reports: MatchaTTS's four, the DiT's one),
+``DROPOUT_WORDS`` and ``PARALLEL`` (the DiT trains on one device: data and
+tensor parallelism raise); the weight-decay mask comes from its parameter
+table (``weights.decay_mask``).  The state is a {name: tensor}
 dict of parameters (leaf tensors that require grad), the optimizer's state
 and the step count; the model module is a skeleton that
 ``torch.func.functional_call`` runs with those parameters, as a flax module
-is applied to a parameter tree.  Each step draws CFM's t and noise from a
-``torch.Generator`` seeded from (seed, step), the counterpart of
-``jax.random.fold_in(rng, state.step)``, and its dropout masks from one
-seeded from (seed, step, rank), as the JAX step keeps dropout on a stream
-of its own (``fold_in(rng, 7)``).
+is applied to a parameter tree.  Each step draws CFM's t and noise (the
+DiT: its spans, noise and t) from a ``torch.Generator`` seeded from
+(seed, step), the counterpart of ``jax.random.fold_in(rng, state.step)``,
+and its dropout masks from one seeded from (seed, step, rank) and the
+model's ``DROPOUT_WORDS`` (MatchaTTS none, the DiT (2,)), as the JAX step
+keeps dropout on a stream of its own (``fold_in(rng, 7)``).
 
 Data parallelism (``data_parallel=True``, a process group running; see
 ``parallel/mesh.py``): each rank holds a contiguous block of the global
@@ -47,13 +59,12 @@ import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
-import numpy as np
 import torch
 from torch.func import functional_call
 
 from matcha_tpu_torch.inference import resolve_device, strict_fp32
-from matcha_tpu_torch.models.config import MatchaConfig
-from matcha_tpu_torch.models.matcha import MatchaTTS, init_params
+from matcha_tpu_torch.models.config import DiTConfig, MatchaConfig
+from matcha_tpu_torch.models.layers import step_seed  # noqa: F401  (re-exported: the trainer, tools, tests)
 from matcha_tpu_torch.parallel import mesh, sharding
 from matcha_tpu_torch.train.optim import AdamW, OptimizerConfig, OptState, global_norm
 from matcha_tpu_torch.utils.profiling import annotate
@@ -85,23 +96,20 @@ class TrainState:
     step: int = 0
 
 
-def step_seed(seed: int, step: int, *more: int) -> int:
-    """A generator seed for step ``step`` of a run seeded with ``seed``
-    (and ``more``, e.g. a rank)."""
-    words = np.random.SeedSequence([seed, step, *more]).generate_state(2, dtype=np.uint32)
-    return int(words[0]) << 32 | int(words[1])
-
-
 class TrainStep:
     """The model skeleton, the optimizer and the two step functions."""
 
-    def __init__(self, cfg: MatchaConfig, opt_cfg: OptimizerConfig, device=None,
+    def __init__(self, cfg: MatchaConfig | DiTConfig, opt_cfg: OptimizerConfig, device=None,
                  trainable: dict[str, bool] | None = None, data_parallel: bool = False,
                  mesh2d: sharding.Mesh2D | None = None):
+        model_class = cfg.model_class()
+        if not model_class.PARALLEL and (data_parallel or mesh2d is not None):
+            raise ValueError(f"{model_class.__name__} trains on one device: data and tensor parallelism are "
+                             "not ported for it (trainer.use_mesh=false, trainer.tensor_parallel=1)")
         self.device = resolve_device(device)
         strict_fp32(self.device)  # the log-prior product and the fp32 islands
         self.cfg = cfg
-        self.model = MatchaTTS(cfg).to(self.device)
+        self.model = model_class(cfg).to(self.device)
         self.mesh2d = mesh2d
         self.specs = None
         norm = None
@@ -131,7 +139,7 @@ class TrainStep:
         Every leaf contiguous, as the card's optimizer takes them (a bridged
         state_dict holds transposed views)."""
         if params is None:
-            params = init_params(self.cfg, generator or torch.Generator().manual_seed(0))
+            params = self.model.init_params(self.cfg, generator or torch.Generator().manual_seed(0))
         p = {n: t.detach().to(self.device, torch.float32).clone(memory_format=torch.contiguous_format)
              .requires_grad_(True) for n, t in self.local_state(params).items()}
         return TrainState(p, self.opt.init(p), 0)
@@ -181,9 +189,7 @@ class TrainStep:
             loss_kwargs = {"sum_over_ranks": lambda t: mesh.all_reduce_sum(t, self.dp_group),
                            "rows": (self.data_index * b, self.data_size * b), **loss_kwargs}
         return functional_call(
-            self.model, params,
-            (batch.x, batch.x_lengths, batch.y, batch.y_lengths, batch.y_fine,
-             batch.y_fine_lengths, batch.spks, self._generator(seed)),
+            self.model, params, (*self.model.batch_inputs(batch), self._generator(seed)),
             {"row_weights": batch.weights, "dropout_generator": self._generator(dropout_seed),
              **loss_kwargs},
         )
@@ -192,21 +198,28 @@ class TrainStep:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _loss_metrics(self, losses) -> dict[str, torch.Tensor]:
-        """The four losses, summed over the group under data parallelism
-        (each rank holds its share of the global batch's)."""
-        parts = torch.stack([losses[k].detach() for k in ("loss", "diff_loss", "dur_loss", "prior_loss")])
+        """The model's losses (MatchaTTS: four), summed over the group under
+        data parallelism (each rank holds its share of the global batch's)."""
+        keys, names = zip(*self.model.METRICS)
+        parts = torch.stack([losses[k].detach() for k in keys])
         if self.data_parallel:
             parts = mesh.all_reduce_sum(parts, self.dp_group)
-        return dict(zip(("loss", "sub_loss/diff", "sub_loss/dur", "sub_loss/prior"), parts))
+        return dict(zip(names, parts))
+
+    def _dropout_seed(self, seed: int, step: int) -> int:
+        """The seed of this rank's dropout masks at ``step``: (seed, step,
+        rank) and the model's ``DROPOUT_WORDS``."""
+        return step_seed(seed, step, self.data_index, *self.model.DROPOUT_WORDS)
 
     def train_step(self, state: TrainState, batch: Batch, seed: int, **loss_kwargs):
         """Updates ``state`` in place; returns it and the metrics (device
-        scalars).  ``loss_kwargs`` (``deterministic``, ``cfm_t_noise``) pass
-        to ``compute_losses``."""
+        scalars).  ``loss_kwargs`` (``deterministic``; MatchaTTS's
+        ``cfm_t_noise``) pass to ``compute_losses``."""
         with annotate("matcha/train.step"):
             with annotate("matcha/train.forward"):
+                loss_kwargs = {**self.model.step_kwargs(seed, state.step, count=True), **loss_kwargs}
                 losses = self._losses(state.params, batch, step_seed(seed, state.step),
-                                      step_seed(seed, state.step, self.data_index), loss_kwargs)
+                                      self._dropout_seed(seed, state.step), loss_kwargs)
             with annotate("matcha/train.backward"):
                 grads = self._grads(losses["loss"], state.params)
             with annotate("matcha/train.optimizer"):
@@ -241,11 +254,12 @@ class TrainStep:
     def eval_step(self, params, batch: Batch, seed: int, **loss_kwargs):
         """Losses without an update.  Dropout stays on, as in the JAX
         package's ``eval_step`` (it passes no ``deterministic``)."""
-        losses = self._losses(params, batch, seed, step_seed(seed, 0, self.data_index), loss_kwargs)
+        loss_kwargs = {**self.model.step_kwargs(seed, 0, count=False), **loss_kwargs}
+        losses = self._losses(params, batch, seed, self._dropout_seed(seed, 0), loss_kwargs)
         return self._loss_metrics(losses)
 
 
-def make_train_step(cfg: MatchaConfig, opt_cfg: OptimizerConfig, device=None,
+def make_train_step(cfg: MatchaConfig | DiTConfig, opt_cfg: OptimizerConfig, device=None,
                     trainable: dict[str, bool] | None = None):
     """(train_step, eval_step) on ``device`` (the card unless "cpu" is asked for).
 

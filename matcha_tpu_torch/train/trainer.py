@@ -1,6 +1,9 @@
 """Training loop: epochs over bucketed batches, validation, checkpoints.
 
-Counterpart of ``matcha_tpu/train/trainer.py``:
+It trains either model ``train/step.py`` builds: MatchaTTS from a
+``MatchaConfig``, or F5-TTS's DiT from a ``DiTConfig`` (one device only;
+its checkpoints hold no speaker tables).  Counterpart of
+``matcha_tpu/train/trainer.py``:
 
   * the sampler re-seeded per epoch (fresh jittered packing, stable count)
   * validation every N epochs through the same loss pipeline
@@ -49,7 +52,7 @@ from matcha_tpu_torch.data import native_loader
 from matcha_tpu_torch.data.datamodule import TextMelDataModule
 from matcha_tpu_torch.data.dataset import TextMelDataset
 from matcha_tpu_torch.inference import resolve_device
-from matcha_tpu_torch.models.config import MatchaConfig
+from matcha_tpu_torch.models.config import DiTConfig, MatchaConfig
 from matcha_tpu_torch.parallel import mesh, sharding
 from matcha_tpu_torch.train.checkpoint import (
     expand_speaker_tables,
@@ -121,7 +124,7 @@ class NullLogger:
 class Trainer:
     def __init__(
         self,
-        model_cfg: MatchaConfig,
+        model_cfg: MatchaConfig | DiTConfig,
         opt_cfg: OptimizerConfig,
         trainer_cfg: TrainerConfig,
         train_dataset: TextMelDataset,
@@ -222,6 +225,11 @@ class Trainer:
             return self.steps.init_state(generator=torch.Generator().manual_seed(self.cfg.seed))
         fine_tune = self.trainable_mask is not None
         tree, ckpt_cfg = load_checkpoint(resume_from)
+        if type(ckpt_cfg) is not type(self.model_cfg):
+            raise ValueError(f"{resume_from} holds a {type(ckpt_cfg).__name__}, "
+                             f"this run trains a {type(self.model_cfg).__name__}")
+        if isinstance(ckpt_cfg, DiTConfig):
+            return self._state_from_tree(tree, ckpt_cfg, fine_tune)
         want = self.model_cfg.n_spks
         if fine_tune and ckpt_cfg.n_spks != want:
             raise ValueError(
@@ -236,6 +244,9 @@ class Trainer:
         if ckpt_cfg.n_spks < want:
             print(f"expanded speaker tables {ckpt_cfg.n_spks} → {want} on resume")
             tree, ckpt_cfg = expand_speaker_tables(tree, ckpt_cfg, want)
+        return self._state_from_tree(tree, ckpt_cfg, fine_tune)
+
+    def _state_from_tree(self, tree, ckpt_cfg, fine_tune: bool) -> TrainState:
         params, opt_state, step, _ = train_state_from_tree(
             tree, ckpt_cfg, self.device, with_optimizer=not fine_tune)
         params = {n: p.detach().requires_grad_(True) for n, p in self.steps.local_state(params).items()}

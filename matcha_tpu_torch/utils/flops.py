@@ -22,6 +22,11 @@ without grad (the MAS log-prior) count once.
       Vocos on those frames
   train_step_flops(cfg, batch, tx, frames)
       ``compute_losses`` at ``frames`` coarse frames, forward and backward
+  dit_train_step_flops(cfg, batch, frames)
+      F5-TTS's DiT (``models/dit.py``) on ``frames`` mel frames, forward
+      and backward: the time MLP's first layer takes no input gradient,
+      the input projection its whole input's (the text part needs one);
+      no embedding lookup, GRN or RoPE
 
 ``*_products`` list the products of one module, for a breakdown by
 component (``utils/profile_stage_b.py``).  Only the transformer decoder is
@@ -32,7 +37,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-from matcha_tpu_torch.models.config import MatchaConfig
+from matcha_tpu_torch.models.config import DiTConfig, MatchaConfig
+from matcha_tpu_torch.models.dit import CONV_MULT, CONV_POS_GROUPS, CONV_POS_KERNEL, FREQ_EMBED_DIM
 
 # U-Net evaluations per solver step (models/flow_matching.py)
 EVALS_PER_STEP = {"euler": 1, "midpoint": 2, "heun3": 3, "rk4": 4}
@@ -192,3 +198,29 @@ def train_step_flops(cfg: MatchaConfig, batch: int, tx: int, frames: int) -> flo
     log_prior = Product("log_prior", 2.0 * batch * tx * 2 * frames * cfg.n_feats, 0)
     return step_flops(text_encoder_products(cfg, batch, tx) + [log_prior]
                       + decoder_products(cfg, batch, frames))
+
+
+def dit_products(cfg: DiTConfig, b: int, n: int) -> list[Product]:
+    """The DiT's products on ``b`` rows of ``n`` frames (``models/dit.py``)."""
+    d, td = cfg.dim, cfg.text_dim
+    inner, hidden = cfg.heads * cfg.dim_head, cfg.dim * cfg.ff_mult
+    out = [_conv("time_mlp.0", b, 1, FREQ_EMBED_DIM, d, grad_input=False), _conv("time_mlp.2", b, 1, d, d)]
+    for i in range(cfg.conv_layers):
+        out += [_conv(f"text{i}.dwconv", b, n, td, td, 7, groups=td),
+                _conv(f"text{i}.pwconv1", b, n, td, td * CONV_MULT),
+                _conv(f"text{i}.pwconv2", b, n, td * CONV_MULT, td)]
+    out.append(_conv("input.proj", b, n, 2 * cfg.n_feats + td, d))
+    out += [_conv(f"input.conv_pos{i}", b, n, d, d, CONV_POS_KERNEL, groups=CONV_POS_GROUPS)
+            for i in range(2)]
+    for i in range(cfg.depth):
+        out.append(_conv(f"block{i}.adaln", b, 1, d, 6 * d))
+        out += [_conv(f"block{i}.to_{x}", b, n, d, inner) for x in "qkv"]
+        out += _attention(f"block{i}.attention", b, cfg.heads, n, cfg.dim_head)
+        out += [_conv(f"block{i}.to_out", b, n, inner, d), _conv(f"block{i}.ff1", b, n, d, hidden),
+                _conv(f"block{i}.ff2", b, n, hidden, d)]
+    out += [_conv("norm_out", b, 1, d, 2 * d), _conv("proj_out", b, n, d, cfg.n_feats)]
+    return out
+
+
+def dit_train_step_flops(cfg: DiTConfig, batch: int, frames: int) -> float:
+    return step_flops(dit_products(cfg, batch, frames))

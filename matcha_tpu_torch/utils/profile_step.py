@@ -30,9 +30,16 @@ tokens in proportion, random ids, mels and speakers from seed 0.  The
 production points are B=62 × 512 (text bucket 224) and B=29 × 1088 (448)
 at 32,000 frames a batch.
 
+``--model f5`` profiles F5-TTS v1 Base's DiT step instead (``DiTConfig()``,
+the published widths; ``models/dit.py``), by default at the f5-train
+cell's longest bucket, B=13 × 2848 frames (text bucket 448), with
+``utils/flops.dit_train_step_flops``; it also reports the steps whose
+audio and text conditions were dropped (``F5TTS.dropped``).
+
 Usage:
     python -m matcha_tpu_torch.utils.profile_step [--batch 62] [--tx 224]
         [--frames 512] [--iters 5] [--compute_dtype bfloat16] [--remat]
+    python -m matcha_tpu_torch.utils.profile_step --model f5 [--batch 13 --tx 448 --frames 2848]
 
 Prints one JSON line.  ``--device cpu --tiny`` runs at tiny widths on the
 CPU, for the tests: the device fields are then null.
@@ -73,21 +80,24 @@ def synthetic_batch(cfg, b: int, tx: int, frames: int, seed: int = 0):
     y *= (np.arange(frames)[None] < y_len[:, None])[..., None]
     y_fine *= (np.arange(2 * frames)[None] < 2 * y_len[:, None])[..., None]
     return Batch(*(torch.from_numpy(np.asarray(a)) for a in (
-        x, x_len, y, y_len, y_fine, 2 * y_len, rng.integers(0, cfg.n_spks, b))))
+        x, x_len, y, y_len, y_fine, 2 * y_len, rng.integers(0, getattr(cfg, "n_spks", 1), b))))
 
 
 def main(argv=None) -> int:
     from matcha_tpu_torch import bench
     from matcha_tpu_torch.inference import resolve_device
+    from matcha_tpu_torch.models.config import DiTConfig, tiny_dit_config
     from matcha_tpu_torch.train.optim import OptimizerConfig
     from matcha_tpu_torch.train.step import TrainStep
     from matcha_tpu_torch.utils import profiling, trace_analysis
-    from matcha_tpu_torch.utils.flops import train_step_flops
+    from matcha_tpu_torch.utils.flops import dit_train_step_flops, train_step_flops
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--batch", type=int, default=62)
-    parser.add_argument("--tx", type=int, default=224)
-    parser.add_argument("--frames", type=int, default=512)  # coarse mel frames
+    parser.add_argument("--model", choices=("matcha", "f5"), default="matcha")
+    parser.add_argument("--batch", type=int, default=None, help="default 62 (matcha), 13 (f5)")
+    parser.add_argument("--tx", type=int, default=None, help="default 224 (matcha), 448 (f5)")
+    parser.add_argument("--frames", type=int, default=None,  # coarse mel frames
+                        help="default 512 (matcha), 2848 (f5)")
     parser.add_argument("--iters", type=int, default=5, help="timed steps after the first")
     parser.add_argument("--compute_dtype", default="bfloat16")
     parser.add_argument("--remat", action="store_true",
@@ -98,13 +108,22 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
 
-    cfg, _ = bench.configs(args.compute_dtype, args.tiny)
-    if args.remat:
-        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, remat=True))
-    b, tx, frames = args.batch, args.tx, args.frames
+    f5 = args.model == "f5"
+    if f5 and args.remat:
+        parser.error("--remat rematerialises MatchaTTS's decoder blocks; the DiT has none")
+    if f5:
+        cfg = dataclasses.replace(tiny_dit_config() if args.tiny else DiTConfig(), compute_dtype=args.compute_dtype)
+        opt_cfg = OptimizerConfig(lr=7.5e-5, weight_decay=0.01, b2=0.999, grad_clip=1.0)
+    else:
+        cfg, _ = bench.configs(args.compute_dtype, args.tiny)
+        opt_cfg = OptimizerConfig()
+        if args.remat:
+            cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, remat=True))
+    b, tx, frames = (13, 448, 2848) if f5 else (62, 224, 512)
+    b, tx, frames = args.batch or b, args.tx or tx, args.frames or frames
     batch = synthetic_batch(cfg, b, tx, frames).to(device)
     real_frames = int(batch.y_lengths.sum())
-    ts = TrainStep(cfg, OptimizerConfig(), device=device)
+    ts = TrainStep(cfg, opt_cfg, device=device)
     state = ts.init_state(generator=torch.Generator().manual_seed(0))
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
@@ -125,7 +144,7 @@ def main(argv=None) -> int:
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30 if on_card else None
 
     trace = mfu = None
-    flops = train_step_flops(cfg, b, tx, frames)
+    flops = dit_train_step_flops(cfg, b, frames) if f5 else train_step_flops(cfg, b, tx, frames)
     if on_card:
         with tempfile.TemporaryDirectory(prefix="profile_step_") as logdir:
             with profiling.trace(logdir):
@@ -161,8 +180,10 @@ def main(argv=None) -> int:
         "mfu_flops_source": "analytic",
         "losses": {"first": losses[0], "last": losses[-1]},
         "batch": b, "tx": tx, "coarse_frames": frames, "compute_dtype": cfg.compute_dtype,
-        "remat": args.remat, "device": bench.device_info(device),
+        "remat": args.remat, "model": args.model, "device": bench.device_info(device),
     }
+    if f5:
+        out["dropped"] = dict(ts.model.dropped)
     if not on_card:
         out["not_measured"] = ["peak_memory_gib", "device_trace", "mfu"]
     print(json.dumps(out))

@@ -25,6 +25,12 @@ flax layout, and the tests hold gradients against ``jax.grad``), as do
 ``decay_mask`` reads weight decay off the layout kind: the rows that are
 flax ``kernel``s decay, the ``copy`` rows (embeddings, norm scales and
 biases, biases, SnakeBeta alpha/beta) do not.
+
+F5-TTS's DiT (``models/dit.py``) has no flax layout: its table
+(``F5TTS.param_table``) nests the torch names by their dots, in the kind
+``torch`` (kept as it is, and decayed), so its checkpoints keep the
+trainer's format and key paths, and every one of its leaves decays.
+``param_table`` asks the class a config builds for its table.
 """
 
 from __future__ import annotations
@@ -34,11 +40,12 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from matcha_tpu_torch.models.config import MatchaConfig
+from matcha_tpu_torch.models.config import DiTConfig, MatchaConfig
 from matcha_tpu_torch.vocoder.vocos import VocosConfig
 
 _TO_TORCH = {
     "copy": lambda w: w,
+    "torch": lambda w: w,
     "conv": lambda w: np.transpose(w, (2, 1, 0)),
     "dense": lambda w: w.T,
     "dense_as_conv1x1": lambda w: w.T[:, :, None],
@@ -48,6 +55,7 @@ _TO_TORCH = {
 
 _TO_FLAX = {
     "copy": lambda w: w,
+    "torch": lambda w: w,
     "conv": lambda w: np.transpose(w, (2, 1, 0)),
     "dense": lambda w: w.T,
     "dense_as_conv1x1": lambda w: w[:, :, 0].T,
@@ -222,9 +230,10 @@ def _bridge(tree: Mapping, rows) -> dict[str, torch.Tensor]:
     return state
 
 
-def params_from_jax(flax_params: Mapping, cfg: MatchaConfig) -> dict[str, torch.Tensor]:
-    """MatchaTTS flax param tree (numpy leaves) → port state_dict (fp32)."""
-    return _bridge(flax_params, matcha_param_table(cfg))
+def params_from_jax(flax_params: Mapping, cfg: MatchaConfig | DiTConfig) -> dict[str, torch.Tensor]:
+    """MatchaTTS flax param tree (the DiT's tree of torch names; numpy
+    leaves) → port state_dict (fp32)."""
+    return _bridge(flax_params, param_table(cfg))
 
 
 def vocos_params_from_jax(flax_params: Mapping, cfg: VocosConfig) -> dict[str, torch.Tensor]:
@@ -261,9 +270,10 @@ def _unbridge(state: Mapping[str, torch.Tensor], rows) -> dict:
     })
 
 
-def params_to_jax(state: Mapping[str, torch.Tensor], cfg: MatchaConfig) -> dict:
-    """Port state_dict (any device) → MatchaTTS flax param tree (fp32 numpy)."""
-    return _unbridge(state, matcha_param_table(cfg))
+def params_to_jax(state: Mapping[str, torch.Tensor], cfg: MatchaConfig | DiTConfig) -> dict:
+    """Port state_dict (any device) → MatchaTTS flax param tree (the DiT's
+    tree of torch names; fp32 numpy)."""
+    return _unbridge(state, param_table(cfg))
 
 
 def vocos_params_to_jax(state: Mapping[str, torch.Tensor], cfg: VocosConfig) -> dict:
@@ -279,6 +289,12 @@ def style_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
     return _unbridge(state, style_param_table(n_layers))
 
 
-def decay_mask(cfg: MatchaConfig) -> dict[str, bool]:
-    """torch name → True where AdamW's weight decay applies (flax kernels)."""
-    return {name: kind != "copy" for name, _, kind in matcha_param_table(cfg)}
+def param_table(cfg: MatchaConfig | DiTConfig) -> list[tuple[str, str, str]]:
+    """The parameter table of the model ``cfg`` builds."""
+    return cfg.model_class().param_table(cfg)
+
+
+def decay_mask(cfg: MatchaConfig | DiTConfig) -> dict[str, bool]:
+    """torch name → True where AdamW's weight decay applies: every row but
+    the ``copy`` ones (MatchaTTS's flax kernels; every leaf of the DiT)."""
+    return {name: kind != "copy" for name, _, kind in param_table(cfg)}
