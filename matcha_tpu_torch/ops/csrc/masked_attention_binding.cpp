@@ -43,6 +43,32 @@ cudaError_t adamw_update_launch(const long long* leaves, const long long* chunks
                                 const float* out, float one_minus_b1, float b1, float one_minus_b2,
                                 float b2, float eps, float weight_decay, float neg_lr,
                                 float grad_clip, cudaStream_t stream);
+cudaError_t dit_modulate_fwd_launch(const float* h, const float* scale, const float* shift,
+                                    long long ss_stride, void* y, bool bf16, float* mean,
+                                    float* rstd, long long rows, int n, int width, float eps,
+                                    cudaStream_t stream);
+cudaError_t dit_modulate_bwd_launch(const void* dy, bool bf16, const float* h, const float* scale,
+                                    long long ss_stride, const float* mean, const float* rstd,
+                                    float* dh, float* partials, float* dscale_shift, int batch,
+                                    int n, int width, int rows_per_tile, cudaStream_t stream);
+cudaError_t dit_rope_heads_launch(const void* q, const void* k, const void* v, const float* rope,
+                                  void* oq, void* ok, void* ov, bool bf16, bool backward,
+                                  int batch, int n, int heads, int dim_head, cudaStream_t stream);
+cudaError_t dit_gated_residual_fwd_launch(const float* h, const float* g, long long g_stride,
+                                          const void* y, bool bf16, const float* u, float keep_p,
+                                          const uint8_t* row_keep, float* out, uint8_t* bits,
+                                          int batch, int n, int width, cudaStream_t stream);
+cudaError_t dit_gated_residual_bwd_launch(const float* dout, const float* g, long long g_stride,
+                                          const void* y, bool bf16, const uint8_t* bits,
+                                          float keep_p, const uint8_t* row_keep, void* dy,
+                                          float* partials, float* dg, int batch, int n, int width,
+                                          int rows_per_tile, cudaStream_t stream);
+cudaError_t dit_gelu_dropout_fwd_launch(const void* x, bool bf16, const float* u, float keep_p,
+                                        void* y, uint8_t* bits, long long count,
+                                        cudaStream_t stream);
+cudaError_t dit_gelu_dropout_bwd_launch(const void* dy, const void* x, bool bf16,
+                                        const uint8_t* bits, float keep_p, void* dx,
+                                        long long count, cudaStream_t stream);
 
 namespace {
 
@@ -321,6 +347,252 @@ void adamw_update(const torch::Tensor& leaves, const torch::Tensor& chunks, cons
   TORCH_CHECK(err == cudaSuccess, "adamw_update launch refused: ", cudaGetErrorString(err));
 }
 
+// ---------------------------------------------------------------------------
+// the DiT block's glue (dit_fused.cu): every row-major tensor contiguous and
+// 16-byte aligned, on one CUDA device; the narrow operands bfloat16 or
+// float32, the carry, the statistics and the uniforms float32
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int64_t kDitMaxWidth = 8192;  // 1,024 threads of 8 columns
+
+void check_dit(const torch::Tensor& t, const torch::Tensor& like, torch::ScalarType dtype,
+               int64_t numel, const char* name) {
+  TORCH_CHECK(t.is_cuda() && t.device() == like.device(), name, " must lie on ", like.device());
+  TORCH_CHECK(t.is_contiguous() && t.scalar_type() == dtype && t.numel() == numel, name,
+              " must be a contiguous ", c10::toString(dtype), " tensor of ", numel, " elements");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0, name, " must be 16-byte aligned");
+}
+
+// (B, N, C) of a contiguous float32 CUDA carry; C a multiple of 8.
+std::array<int64_t, 3> dit_rows(const torch::Tensor& h, const char* name) {
+  TORCH_CHECK(h.dim() == 3, name, " must be (B, N, C)");
+  const int64_t batch = h.size(0), n = h.size(1), width = h.size(2);
+  TORCH_CHECK(width % 8 == 0 && width <= kDitMaxWidth, name, "'s width must be a multiple of 8 up to ",
+              kDitMaxWidth);
+  TORCH_CHECK(batch <= 65535 && n < (int64_t{1} << 31) && batch * n * width < (int64_t{1} << 40),
+              name, " too large");
+  check_dit(h, h, h.scalar_type(), batch * n * width, name);
+  return {batch, n, width};
+}
+
+// A (B, 1, C) float32 view of the adaLN vectors (scale, shift, gate) with
+// unit column stride; returns its batch stride.
+int64_t dit_vector(const torch::Tensor& t, const torch::Tensor& like, int64_t batch, int64_t width,
+                   const char* name) {
+  TORCH_CHECK(t.is_cuda() && t.device() == like.device() && t.scalar_type() == torch::kFloat32 &&
+                  t.dim() == 3 && t.size(0) == batch && t.size(1) == 1 && t.size(2) == width &&
+                  t.stride(2) == 1 && t.stride(0) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0,
+              name, " must be a (B, 1, C) float32 view on ", like.device(),
+              " with unit column stride, 16-byte aligned rows");
+  return t.stride(0);
+}
+
+bool dit_narrow(const torch::Tensor& t, const char* name) {
+  TORCH_CHECK(t.scalar_type() == torch::kBFloat16 || t.scalar_type() == torch::kFloat32, name,
+              " must be bfloat16 or float32");
+  return t.scalar_type() == torch::kBFloat16;
+}
+
+const uint8_t* dit_row_keep(const torch::Tensor& keep, const torch::Tensor& like, int64_t batch,
+                            int64_t n) {
+  if (keep.numel() == 0) return nullptr;
+  TORCH_CHECK(keep.is_cuda() && keep.device() == like.device() && keep.is_contiguous() &&
+                  keep.scalar_type() == torch::kBool && keep.dim() == 2 && keep.size(0) == batch &&
+                  keep.size(1) == n,
+              "keep must be a contiguous (B, N) bool tensor on ", like.device());
+  return reinterpret_cast<const uint8_t*>(keep.data_ptr<bool>());
+}
+
+void dit_check_launch(cudaError_t err, const char* what) {
+  TORCH_CHECK(err == cudaSuccess, what, " launch refused: ", cudaGetErrorString(err));
+}
+
+}  // namespace
+
+// y = LN₀(h)·(1 + scale) + shift in y's dtype, and each row's mean and
+// rstd.  h: (B, N, C) float32; scale, shift: (B, 1, C) float32 views
+// sharing a batch stride; y: (B, N, C); mean, rstd: (B, N) float32.
+void dit_modulate_fwd(const torch::Tensor& h, const torch::Tensor& scale,
+                      const torch::Tensor& shift, const torch::Tensor& y,
+                      const torch::Tensor& mean, const torch::Tensor& rstd, double eps) {
+  TORCH_CHECK(h.scalar_type() == torch::kFloat32, "h must be float32");
+  const auto [batch, n, width] = dit_rows(h, "h");
+  const int64_t ss = dit_vector(scale, h, batch, width, "scale");
+  TORCH_CHECK(dit_vector(shift, h, batch, width, "shift") == ss, "scale and shift must share a stride");
+  const bool bf16 = dit_narrow(y, "y");
+  check_dit(y, h, y.scalar_type(), h.numel(), "y");
+  check_dit(mean, h, torch::kFloat32, batch * n, "mean");
+  check_dit(rstd, h, torch::kFloat32, batch * n, "rstd");
+  const c10::cuda::CUDAGuard guard(h.device());
+  dit_check_launch(dit_modulate_fwd_launch(h.data_ptr<float>(), scale.data_ptr<float>(),
+                                           shift.data_ptr<float>(), ss, y.data_ptr(), bf16,
+                                           mean.data_ptr<float>(), rstd.data_ptr<float>(),
+                                           batch * n, static_cast<int>(n), static_cast<int>(width),
+                                           static_cast<float>(eps),
+                                           c10::cuda::getCurrentCUDAStream().stream()),
+                   "dit_modulate_fwd");
+}
+
+// dh (B, N, C) float32, and d(scale), d(shift) into dscale_shift (2, B, C)
+// float32 through partials (2·B·tiles·C float32, tiles = ceil(N /
+// rows_per_tile)).  dy: (B, N, C) in the forward's y dtype.
+void dit_modulate_bwd(const torch::Tensor& dy, const torch::Tensor& h, const torch::Tensor& scale,
+                      const torch::Tensor& mean, const torch::Tensor& rstd, const torch::Tensor& dh,
+                      const torch::Tensor& partials, const torch::Tensor& dscale_shift,
+                      int64_t rows_per_tile) {
+  TORCH_CHECK(h.scalar_type() == torch::kFloat32, "h must be float32");
+  const auto [batch, n, width] = dit_rows(h, "h");
+  TORCH_CHECK(rows_per_tile >= 1, "rows_per_tile must be at least 1");
+  const int64_t tiles = (n + rows_per_tile - 1) / rows_per_tile;
+  const int64_t ss = dit_vector(scale, h, batch, width, "scale");
+  const bool bf16 = dit_narrow(dy, "dy");
+  check_dit(dy, h, dy.scalar_type(), h.numel(), "dy");
+  check_dit(mean, h, torch::kFloat32, batch * n, "mean");
+  check_dit(rstd, h, torch::kFloat32, batch * n, "rstd");
+  check_dit(dh, h, torch::kFloat32, h.numel(), "dh");
+  check_dit(partials, h, torch::kFloat32, 2 * batch * tiles * width, "partials");
+  check_dit(dscale_shift, h, torch::kFloat32, 2 * batch * width, "dscale_shift");
+  const c10::cuda::CUDAGuard guard(h.device());
+  dit_check_launch(dit_modulate_bwd_launch(dy.data_ptr(), bf16, h.data_ptr<float>(),
+                                           scale.data_ptr<float>(), ss, mean.data_ptr<float>(),
+                                           rstd.data_ptr<float>(), dh.data_ptr<float>(),
+                                           partials.data_ptr<float>(), dscale_shift.data_ptr<float>(),
+                                           static_cast<int>(batch), static_cast<int>(n),
+                                           static_cast<int>(width), static_cast<int>(rows_per_tile),
+                                           c10::cuda::getCurrentCUDAStream().stream()),
+                   "dit_modulate_bwd");
+}
+
+// Forward: q, k, v (B, N, H·D) → oq, ok, ov (B, H, N, D), q and k rotated;
+// `backward`: (B, H, N, D) gradients → (B, N, H·D), q's and k's rotated
+// back.  One dtype; rope: (N, D/2, 2) float32 (cos, sin); D % 8 == 0.
+void dit_rope_heads(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
+                    const torch::Tensor& rope, const torch::Tensor& oq, const torch::Tensor& ok,
+                    const torch::Tensor& ov, int64_t heads, bool backward) {
+  const torch::Tensor& flat = backward ? oq : q;
+  const torch::Tensor& split = backward ? q : oq;
+  const auto [batch, n, inner] = dit_rows(flat, backward ? "dq" : "q");
+  TORCH_CHECK(heads >= 1 && inner % heads == 0 && (inner / heads) % 8 == 0,
+              "the head dim must be a multiple of 8");
+  const int64_t dim_head = inner / heads;
+  TORCH_CHECK(split.dim() == 4 && split.size(0) == batch && split.size(1) == heads &&
+                  split.size(2) == n && split.size(3) == dim_head,
+              "the head tensors must be (B, H, N, D)");
+  const bool bf16 = dit_narrow(q, "q");
+  for (const torch::Tensor* t : {&q, &k, &v, &oq, &ok, &ov})
+    check_dit(*t, q, q.scalar_type(), flat.numel(), "q, k, v and their outputs");
+  check_dit(rope, q, torch::kFloat32, n * dim_head, "rope");
+  TORCH_CHECK(rope.dim() == 3 && rope.size(0) == n && rope.size(2) == 2, "rope must be (N, D/2, 2)");
+  const c10::cuda::CUDAGuard guard(q.device());
+  dit_check_launch(dit_rope_heads_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         rope.data_ptr<float>(), oq.data_ptr(), ok.data_ptr(),
+                                         ov.data_ptr(), bf16, backward, static_cast<int>(batch),
+                                         static_cast<int>(n), static_cast<int>(heads),
+                                         static_cast<int>(dim_head),
+                                         c10::cuda::getCurrentCUDAStream().stream()),
+                   "dit_rope_heads");
+}
+
+// out = h + g·y′ (B, N, C) float32.  u: (B, N, C) float32 uniforms or empty
+// (no dropout); keep: (B, N) bool or empty (every row); bits: (B, N, C/8)
+// uint8, written where u is given.  p: the dropout probability.
+void dit_gated_residual_fwd(const torch::Tensor& h, const torch::Tensor& g, const torch::Tensor& y,
+                            const torch::Tensor& u, const torch::Tensor& keep,
+                            const torch::Tensor& out, const torch::Tensor& bits, double p) {
+  TORCH_CHECK(h.scalar_type() == torch::kFloat32, "h must be float32");
+  const auto [batch, n, width] = dit_rows(h, "h");
+  const int64_t gs = dit_vector(g, h, batch, width, "g");
+  const bool bf16 = dit_narrow(y, "y");
+  check_dit(y, h, y.scalar_type(), h.numel(), "y");
+  check_dit(out, h, torch::kFloat32, h.numel(), "out");
+  const bool dropout = u.numel() > 0;
+  if (dropout) {
+    check_dit(u, h, torch::kFloat32, h.numel(), "u");
+    check_dit(bits, h, torch::kUInt8, h.numel() / 8, "bits");
+  }
+  const uint8_t* row_keep = dit_row_keep(keep, h, batch, n);
+  const c10::cuda::CUDAGuard guard(h.device());
+  dit_check_launch(dit_gated_residual_fwd_launch(
+                       h.data_ptr<float>(), g.data_ptr<float>(), gs, y.data_ptr(), bf16,
+                       dropout ? u.data_ptr<float>() : nullptr, static_cast<float>(1.0 - p),
+                       row_keep, out.data_ptr<float>(), dropout ? bits.data_ptr<uint8_t>() : nullptr,
+                       static_cast<int>(batch), static_cast<int>(n), static_cast<int>(width),
+                       c10::cuda::getCurrentCUDAStream().stream()),
+                   "dit_gated_residual_fwd");
+}
+
+// dy (B, N, C) in y's dtype and d(g) into dg (B, C) float32 through
+// partials (B·tiles·C float32); bits empty: no dropout.
+void dit_gated_residual_bwd(const torch::Tensor& dout, const torch::Tensor& g,
+                            const torch::Tensor& y, const torch::Tensor& bits,
+                            const torch::Tensor& keep, const torch::Tensor& dy,
+                            const torch::Tensor& partials, const torch::Tensor& dg, double p,
+                            int64_t rows_per_tile) {
+  TORCH_CHECK(dout.scalar_type() == torch::kFloat32, "dout must be float32");
+  const auto [batch, n, width] = dit_rows(dout, "dout");
+  TORCH_CHECK(rows_per_tile >= 1, "rows_per_tile must be at least 1");
+  const int64_t tiles = (n + rows_per_tile - 1) / rows_per_tile;
+  const int64_t gs = dit_vector(g, dout, batch, width, "g");
+  const bool bf16 = dit_narrow(y, "y");
+  check_dit(y, dout, y.scalar_type(), dout.numel(), "y");
+  check_dit(dy, dout, y.scalar_type(), dout.numel(), "dy");
+  const bool dropout = bits.numel() > 0;
+  if (dropout) check_dit(bits, dout, torch::kUInt8, dout.numel() / 8, "bits");
+  check_dit(partials, dout, torch::kFloat32, batch * tiles * width, "partials");
+  check_dit(dg, dout, torch::kFloat32, batch * width, "dg");
+  const uint8_t* row_keep = dit_row_keep(keep, dout, batch, n);
+  const c10::cuda::CUDAGuard guard(dout.device());
+  dit_check_launch(dit_gated_residual_bwd_launch(
+                       dout.data_ptr<float>(), g.data_ptr<float>(), gs, y.data_ptr(), bf16,
+                       dropout ? bits.data_ptr<uint8_t>() : nullptr, static_cast<float>(1.0 - p),
+                       row_keep, dy.data_ptr(), partials.data_ptr<float>(), dg.data_ptr<float>(),
+                       static_cast<int>(batch), static_cast<int>(n), static_cast<int>(width),
+                       static_cast<int>(rows_per_tile), c10::cuda::getCurrentCUDAStream().stream()),
+                   "dit_gated_residual_bwd");
+}
+
+// y = GELU_tanh(x), dropped where u is given; x, y: (..., W) one dtype, W %
+// 8 == 0; u: float32 of x's size or empty; bits: uint8 of a byte per 8
+// elements, written where u is given.
+void dit_gelu_dropout_fwd(const torch::Tensor& x, const torch::Tensor& u, const torch::Tensor& y,
+                          const torch::Tensor& bits, double p) {
+  const bool bf16 = dit_narrow(x, "x");
+  TORCH_CHECK(x.dim() >= 1 && x.size(-1) % 8 == 0, "x's last dim must be a multiple of 8");
+  check_dit(x, x, x.scalar_type(), x.numel(), "x");
+  check_dit(y, x, x.scalar_type(), x.numel(), "y");
+  const bool dropout = u.numel() > 0;
+  if (dropout) {
+    check_dit(u, x, torch::kFloat32, x.numel(), "u");
+    check_dit(bits, x, torch::kUInt8, x.numel() / 8, "bits");
+  }
+  const c10::cuda::CUDAGuard guard(x.device());
+  dit_check_launch(dit_gelu_dropout_fwd_launch(x.data_ptr(), bf16,
+                                               dropout ? u.data_ptr<float>() : nullptr,
+                                               static_cast<float>(1.0 - p), y.data_ptr(),
+                                               dropout ? bits.data_ptr<uint8_t>() : nullptr,
+                                               x.numel(), c10::cuda::getCurrentCUDAStream().stream()),
+                   "dit_gelu_dropout_fwd");
+}
+
+// dx = dy/(1 − p)·[kept]·GELU′(x) (dy·GELU′(x) with empty bits).
+void dit_gelu_dropout_bwd(const torch::Tensor& dy, const torch::Tensor& x, const torch::Tensor& bits,
+                          const torch::Tensor& dx, double p) {
+  const bool bf16 = dit_narrow(x, "x");
+  TORCH_CHECK(x.dim() >= 1 && x.size(-1) % 8 == 0, "x's last dim must be a multiple of 8");
+  for (const torch::Tensor* t : {&x, &dy, &dx}) check_dit(*t, x, x.scalar_type(), x.numel(), "x, dy, dx");
+  const bool dropout = bits.numel() > 0;
+  if (dropout) check_dit(bits, x, torch::kUInt8, x.numel() / 8, "bits");
+  const c10::cuda::CUDAGuard guard(x.device());
+  dit_check_launch(dit_gelu_dropout_bwd_launch(dy.data_ptr(), x.data_ptr(), bf16,
+                                               dropout ? bits.data_ptr<uint8_t>() : nullptr,
+                                               static_cast<float>(1.0 - p), dx.data_ptr(),
+                                               x.numel(), c10::cuda::getCurrentCUDAStream().stream()),
+                   "dit_gelu_dropout_bwd");
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("masked_attention_fwd", &masked_attention_fwd,
         "masked self-attention forward (sm_90a), writes out (and lse) in place", py::arg("q"),
@@ -346,4 +618,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "multi-tensor AdamW, first part: global norm, clip, finite check, bias corrections");
   m.def("adamw_update", &adamw_update,
         "multi-tensor AdamW, second part: p, mu, nu of every chunk in place");
+  m.def("dit_modulate_fwd", &dit_modulate_fwd, "DiT: LN0(h)(1 + scale) + shift, mean and rstd");
+  m.def("dit_modulate_bwd", &dit_modulate_bwd, "DiT: dh, d(scale) and d(shift) of the modulation");
+  m.def("dit_rope_heads", &dit_rope_heads, "DiT: RoPE on q and k with the head layout, v laid out");
+  m.def("dit_gated_residual_fwd", &dit_gated_residual_fwd, "DiT: h + g * dropped branch");
+  m.def("dit_gated_residual_bwd", &dit_gated_residual_bwd, "DiT: the branch's gradient and d(g)");
+  m.def("dit_gelu_dropout_fwd", &dit_gelu_dropout_fwd, "DiT: GELU-tanh with dropout");
+  m.def("dit_gelu_dropout_bwd", &dit_gelu_dropout_bwd, "DiT: the backward of GELU-tanh with dropout");
 }

@@ -22,7 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 # every kernel source of the port, built into one extension so the
 # PyTorch-header binding file compiles once
 SOURCES = ("masked_attention_binding.cpp", "masked_attention_fwd.cu",
-           "masked_attention_bwd.cu", "mas.cu", "adamw.cu")
+           "masked_attention_bwd.cu", "mas.cu", "adamw.cu", "dit_fused.cu")
 HEADERS = ("hopper.cuh",)
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 

@@ -36,6 +36,11 @@ cell's longest bucket, B=13 × 2848 frames (text bucket 448), with
 ``utils/flops.dit_train_step_flops``; it also reports the steps whose
 audio and text conditions were dropped (``F5TTS.dropped``).
 
+Both models report ``dit_launches_per_step``: the launches a step of each
+of the DiT's fused glue kernels (``ops/dit_fused.py``'s counters, forward
+and backward), counted over the timed steps; 0 wherever the eager glue runs
+(MatchaTTS, the CPU).
+
 Usage:
     python -m matcha_tpu_torch.utils.profile_step [--batch 62] [--tx 224]
         [--frames 512] [--iters 5] [--compute_dtype bfloat16] [--remat]
@@ -87,6 +92,7 @@ def main(argv=None) -> int:
     from matcha_tpu_torch import bench
     from matcha_tpu_torch.inference import resolve_device
     from matcha_tpu_torch.models.config import DiTConfig, tiny_dit_config
+    from matcha_tpu_torch.ops import dit_fused
     from matcha_tpu_torch.train.optim import OptimizerConfig
     from matcha_tpu_torch.train.step import TrainStep
     from matcha_tpu_torch.utils import profiling, trace_analysis
@@ -128,6 +134,8 @@ def main(argv=None) -> int:
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
 
+    for counter in dit_fused.COUNTERS:
+        counter.reset()
     losses, times = [], []
     for i in range(args.iters + 1):  # the first step builds plans and pools
         bench._sync(device)
@@ -140,6 +148,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"non-finite metrics at step {i}: {m}")
         losses.append(loss)
     first, steady = times[0], times[1:]
+    dit_launches = {c.name: c.launches / len(times) for c in dit_fused.COUNTERS}
     wall = statistics.median(steady)
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30 if on_card else None
 
@@ -179,6 +188,7 @@ def main(argv=None) -> int:
         "flops_per_step": flops,
         "mfu_flops_source": "analytic",
         "losses": {"first": losses[0], "last": losses[-1]},
+        "dit_launches_per_step": dit_launches,
         "batch": b, "tx": tx, "coarse_frames": frames, "compute_dtype": cfg.compute_dtype,
         "remat": args.remat, "model": args.model, "device": bench.device_info(device),
     }
