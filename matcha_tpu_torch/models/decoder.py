@@ -55,8 +55,6 @@ output layer sums over the group.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -65,19 +63,9 @@ from torch.utils.checkpoint import checkpoint
 
 from matcha_tpu_torch.models.config import DecoderConfig
 from matcha_tpu_torch.models.layers import (
-    Conv1d, ConvTranspose1d, GroupNorm, LayerNorm, Linear, dropout,
+    Conv1d, ConvTranspose1d, GroupNorm, LayerNorm, Linear, dropout, sinusoidal_time_embedding,
 )
 from matcha_tpu_torch.ops.attention import masked_self_attention
-
-
-def sinusoidal_time_embedding(t, dim: int, scale: float = 1000.0):
-    """t ∈ [0,1] (B,) → (B, dim) sinusoidal features (reference: decoder.py:15-29)."""
-    half = dim // 2
-    freqs = torch.exp(
-        torch.arange(half, dtype=torch.float32, device=t.device) * (-math.log(10000.0) / (half - 1))
-    )
-    args = scale * t[:, None] * freqs[None, :]
-    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
 class TimestepMLP(nn.Module):

@@ -29,11 +29,11 @@ LN₀ is LayerNorm without affine, ε 1e-6.  RoPE rotates interleaved pairs
 (x₂ᵢ, x₂ᵢ₊₁) of every head's 64 dims by positions 0…N−1 at inverse
 frequencies 10000^(−2i/64), the x-transformers convention F5 uses.
 Attention is softmax(q·kᵀ/8) over the valid keys (``ops/attention.py``:
-K1 and K1b on the card, the plain version on the CPU).  On the card the
-blocks' glue (modulate, RoPE with the head layout, the gated residual with
-its dropout and row mask, GELU with its dropout) runs as the hand-written
-kernels of ``ops/dit_fused.py``, each with its own backward, on the same
-masks; on the CPU as the eager expressions of this module.
+K1 and K1b on the card, the plain version on the CPU).  The blocks' glue
+(modulate, RoPE with the head layout, the gated residual with its dropout
+and row mask, GELU with its dropout) is ``ops/dit_fused.py``'s four ops,
+which choose by device as attention does: hand-written kernels with their
+own backwards on the card, their plain versions on the CPU.
 
 Training forward (``F5TTS.compute_losses``, ``cfm.py``'s ``forward``):
 a span of ⌊λ·len⌋ frames, λ ~ U(0.7, 1), starting at ⌊U·(len − span)⌋,
@@ -57,9 +57,8 @@ N, dim) then its FFN-hidden mask (B, N, ff_mult·dim), as
 Precision: products (linears and convs) take their inputs in
 ``compute_dtype`` with fp32 accumulation; LayerNorm statistics, GRN, the
 time embedding, the adaLN vectors, RoPE and the residual carry are fp32.
-The loss is fp32.  The card's fused glue rounds to ``compute_dtype`` only
-where a product takes its input; the eager path also rounds the attention
-branch before its dropout divides it, and GELU's output before its dropout.
+The loss is fp32.  The glue rounds to ``compute_dtype`` only where a
+product takes its input, on every device.
 """
 
 from __future__ import annotations
@@ -69,9 +68,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from matcha_tpu_torch.models.config import DiTConfig
-from matcha_tpu_torch.models.decoder import sinusoidal_time_embedding
-from matcha_tpu_torch.models.layers import Conv1d, LayerNorm, Linear, dropout, step_seed
-from matcha_tpu_torch.models.matcha import compute_dtype, random_state_dict
+from matcha_tpu_torch.models.layers import (
+    Conv1d, LayerNorm, Linear, compute_dtype, random_state_dict, sinusoidal_time_embedding, step_seed,
+)
 from matcha_tpu_torch.ops import dit_fused
 from matcha_tpu_torch.ops.attention import masked_self_attention
 from matcha_tpu_torch.utils.model_math import sequence_mask
@@ -103,36 +102,6 @@ def _table(kind: str, width: int, n: int, device) -> torch.Tensor:
         else:
             _TABLES[key] = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1)
     return _TABLES[key]
-
-
-def apply_rope(x: torch.Tensor, rope: torch.Tensor, heads: int) -> torch.Tensor:
-    """(B, N, H·D) → (B, H, N, D) in x's dtype, contiguous: each head's
-    pairs (x₂ᵢ, x₂ᵢ₊₁) → (x₂ᵢ·c − x₂ᵢ₊₁·s, x₂ᵢ₊₁·c + x₂ᵢ·s), in fp32.
-    ``rope``: (N, D/2, 2) cos and sin."""
-    b, n, inner = x.shape
-    pairs = x.float().reshape(b, n, heads, inner // heads // 2, 2)
-    x0, x1 = pairs.unbind(-1)
-    c, s = rope[:, None, :, 0], rope[:, None, :, 1]
-    out = torch.stack([x0 * c - x1 * s, x1 * c + x0 * s], dim=-1).to(x.dtype)
-    return out.reshape(b, n, heads, inner // heads).transpose(1, 2).contiguous()
-
-
-def modulate(h: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    """LN₀(h)·(1 + scale) + shift, fp32; scale and shift (B, 1, C)."""
-    return F.layer_norm(h.float(), (h.shape[-1],), eps=LN_EPS) * (1.0 + scale) + shift
-
-
-def fused_path(x: torch.Tensor) -> bool:
-    """Whether the blocks' glue runs as ``ops/dit_fused.py``'s kernels: on
-    the card always; the CPU keeps the eager expressions of this module."""
-    return x.is_cuda
-
-
-def modulated(h, scale, shift, dtype, branch: str) -> torch.Tensor:
-    """``modulate`` in ``dtype``, the next product's input."""
-    if fused_path(h):
-        return dit_fused.modulate(h, scale, shift, dtype, LN_EPS, branch)
-    return modulate(h, scale, shift).to(dtype)
 
 
 class TimestepEmbedding(nn.Module):
@@ -252,12 +221,7 @@ class Attention(nn.Module):
     def forward(self, a, keep, rope):
         """W_o·attn(RoPE(q), RoPE(k), v), before the branch's dropout."""
         b, n, _ = a.shape
-        q, k, v = self.to_q(a), self.to_k(a), self.to_v(a)
-        if fused_path(a):
-            q, k, v = dit_fused.rope_heads(q, k, v, rope, self.heads)
-        else:
-            q, k = apply_rope(q, rope, self.heads), apply_rope(k, rope, self.heads)
-            v = v.reshape(b, n, self.heads, -1).transpose(1, 2).contiguous()
+        q, k, v = dit_fused.rope_heads(self.to_q(a), self.to_k(a), self.to_v(a), rope, self.heads)
         o = masked_self_attention(q, k, v, keep[..., 0])
         return self.to_out[0](o.transpose(1, 2).reshape(b, n, -1))
 
@@ -271,10 +235,7 @@ class FeedForward(nn.Module):
                                  nn.Identity(), Linear(hidden, cfg.dim, dtype=dtype)])
 
     def forward(self, f, gen):
-        x = self.ff[0][0](f)
-        if fused_path(x):
-            return self.ff[2](dit_fused.gelu_dropout(x, DROPOUT, gen))
-        return self.ff[2](dropout(F.gelu(x, approximate="tanh"), DROPOUT, gen))
+        return self.ff[2](dit_fused.gelu_dropout(self.ff[0][0](f), DROPOUT, gen))
 
 
 class DiTBlock(nn.Module):
@@ -287,13 +248,10 @@ class DiTBlock(nn.Module):
 
     def forward(self, h, temb_act, keep, rope, gen):
         sh1, sc1, g1, sh2, sc2, g2 = self.attn_norm(temb_act)
-        o = self.attn(modulated(h, sc1, sh1, self.dtype, "attn"), keep, rope)
-        if fused_path(h):
-            h = dit_fused.gated_residual(h, g1, o, DROPOUT, gen, keep[..., 0], "attn")
-        else:
-            h = h + g1 * dropout(o, DROPOUT, gen).masked_fill(~keep, 0.0)
-        f = self.ff(modulated(h, sc2, sh2, self.dtype, "ff"), gen)
-        return dit_fused.gated_residual(h, g2, f, 0.0, None, None, "ff") if fused_path(h) else h + g2 * f
+        o = self.attn(dit_fused.modulate(h, sc1, sh1, self.dtype, LN_EPS, "attn"), keep, rope)
+        h = dit_fused.gated_residual(h, g1, o, DROPOUT, gen, keep[..., 0], "attn")
+        f = self.ff(dit_fused.modulate(h, sc2, sh2, self.dtype, LN_EPS, "ff"), gen)
+        return dit_fused.gated_residual(h, g2, f, 0.0, None, None, "ff")
 
 
 class DiT(nn.Module):
@@ -316,7 +274,7 @@ class DiT(nn.Module):
         for block in self.transformer_blocks:
             h = block(h, temb_act, keep, rope, gen)
         sc, sh = self.norm_out(temb_act)
-        return self.proj_out(modulated(h, sc, sh, self.dtype, "out")).float()
+        return self.proj_out(dit_fused.modulate(h, sc, sh, self.dtype, LN_EPS, "out")).float()
 
 
 def cfm_draws(lengths, shape: tuple[int, int, int], generator):
@@ -421,7 +379,7 @@ class F5TTS(nn.Module):
 
 
 def init_params(cfg: DiTConfig, generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """A random F5TTS state_dict (CPU, fp32), by ``matcha.random_state_dict``'s
+    """A random F5TTS state_dict (CPU, fp32), by ``layers.random_state_dict``'s
     rule: matrices and kernels normal, std 1/sqrt(fan-in); norm scales and
     GRN's gamma one; biases and GRN's beta zero."""
     with torch.device("meta"):

@@ -28,6 +28,9 @@ computes a float32 matmul in full float32 unless
 ``torch.backends.cuda.matmul.allow_tf32`` is set (default False), whereas a
 float32 cuDNN convolution runs in TF32 while ``torch.backends.cudnn.allow_tf32``
 is True (its default).  ``MatchaSynthesizer`` clears both flags on the card.
+
+The helpers every model and the vocoder share live here too: the compute
+dtype by name, the sinusoidal time features and the random-weight rule.
 """
 
 from __future__ import annotations
@@ -71,6 +74,69 @@ def dropout(x, p: float, generator: torch.Generator | None, shard: tuple[int, in
         keep = torch.rand(full, generator=generator, device=x.device) < 1.0 - p
         keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"compute dtype {name!r} not in {tuple(DTYPES)}")
+    return DTYPES[name]
+
+
+def sinusoidal_time_embedding(t, dim: int, scale: float = 1000.0):
+    """t ∈ [0,1] (B,) → (B, dim) sinusoidal features (reference: decoder.py:15-29)."""
+    half = dim // 2
+    freqs = torch.exp(
+        torch.arange(half, dtype=torch.float32, device=t.device) * (-math.log(10000.0) / (half - 1))
+    )
+    args = scale * t[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+def random_state_dict(module: nn.Module,
+                      generator: torch.Generator | np.random.RandomState) -> dict[str, torch.Tensor]:
+    """Random weights for ``module`` from ``generator``, by parameter name.
+
+    Matrices and conv kernels: normal with std 1/sqrt(fan-in); norm scales
+    one; biases, norm shifts and SnakeBeta's log-scale alpha/beta zero; the
+    FiLM projection starts as identity (zero weight, bias [1, 0]) and Vocos'
+    layer scale at 1e-6, as the JAX package initialises them.  A numpy
+    ``RandomState`` draws the same scheme from numpy's legacy stream, which
+    is the same on every machine and numpy version.
+    """
+    if isinstance(generator, np.random.RandomState):
+        def randn(shape):
+            return torch.from_numpy(generator.standard_normal(shape).astype(np.float32))
+    else:
+        def randn(shape):
+            return torch.randn(shape, generator=generator)
+    out = {}
+    for name, p in module.state_dict().items():
+        shape = tuple(p.shape)
+        leaf = name.rsplit(".", 1)[-1]
+        if name == "encoder.emb.weight":
+            val = randn(shape) * shape[1] ** -0.5
+        elif name.startswith("speaker_embeddings"):
+            val = randn(shape) * shape[1] ** -0.5
+        elif name == "encoder.proj_w.spk_proj.weight":
+            val = torch.zeros(shape)
+        elif name == "encoder.proj_w.spk_proj.bias":
+            val = torch.cat([torch.ones(shape[0] // 2), torch.zeros(shape[0] - shape[0] // 2)])
+        elif leaf == "gamma" and name.startswith("backbone.convnext"):
+            val = torch.full(shape, 1e-6)
+        elif leaf == "gamma" or (leaf == "weight" and len(shape) == 1):
+            val = torch.ones(shape)
+        elif leaf in ("bias", "beta", "alpha"):
+            val = torch.zeros(shape)
+        else:
+            fan_in = 1
+            for s in shape[1:]:
+                fan_in *= s
+            val = randn(shape) * fan_in ** -0.5
+        out[name] = val.to(torch.float32)
+    return out
 
 
 def wide(dtype: torch.dtype) -> torch.dtype:

@@ -10,7 +10,6 @@ from an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -18,6 +17,7 @@ from torch import nn
 from matcha_tpu_torch.models.config import MatchaConfig
 from matcha_tpu_torch.models.decoder import Decoder
 from matcha_tpu_torch.models.flow_matching import cfm_loss, cfm_synthesise
+from matcha_tpu_torch.models.layers import compute_dtype, random_state_dict
 from matcha_tpu_torch.models.text_encoder import TextEncoder
 from matcha_tpu_torch.ops.mas import durations_from_indices, maximum_path_indices
 from matcha_tpu_torch.text.symbols import N_VOCAB
@@ -25,15 +25,6 @@ from matcha_tpu_torch.utils.model_math import downsample_time, sequence_mask
 from matcha_tpu_torch.utils.profiling import annotate
 
 QUANTILES = (0.5, 0.9, 0.99)
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def compute_dtype(name: str) -> torch.dtype:
-    if name not in DTYPES:
-        raise ValueError(f"compute dtype {name!r} not in {tuple(DTYPES)}")
-    return DTYPES[name]
-
 
 def log_prior_scores(mu_x: torch.Tensor, y_fine: torch.Tensor) -> torch.Tensor:
     """(B, Tx, C) x (B, Ty, C) fp32 → (B, Tx, Ty) Gaussian log-prior −‖y−mu‖²/2.
@@ -251,50 +242,6 @@ class MatchaTTS(nn.Module):
 
     def speaker_embeddings(self, spks):
         return self.speaker_embeddings_enc(spks), self.speaker_embeddings_dur(spks)
-
-
-def random_state_dict(module: nn.Module,
-                      generator: torch.Generator | np.random.RandomState) -> dict[str, torch.Tensor]:
-    """Random weights for ``module`` from ``generator``, by parameter name.
-
-    Matrices and conv kernels: normal with std 1/sqrt(fan-in); norm scales
-    one; biases, norm shifts and SnakeBeta's log-scale alpha/beta zero; the
-    FiLM projection starts as identity (zero weight, bias [1, 0]) and Vocos'
-    layer scale at 1e-6, as the JAX package initialises them.  A numpy
-    ``RandomState`` draws the same scheme from numpy's legacy stream, which
-    is the same on every machine and numpy version.
-    """
-    if isinstance(generator, np.random.RandomState):
-        def randn(shape):
-            return torch.from_numpy(generator.standard_normal(shape).astype(np.float32))
-    else:
-        def randn(shape):
-            return torch.randn(shape, generator=generator)
-    out = {}
-    for name, p in module.state_dict().items():
-        shape = tuple(p.shape)
-        leaf = name.rsplit(".", 1)[-1]
-        if name == "encoder.emb.weight":
-            val = randn(shape) * shape[1] ** -0.5
-        elif name.startswith("speaker_embeddings"):
-            val = randn(shape) * shape[1] ** -0.5
-        elif name == "encoder.proj_w.spk_proj.weight":
-            val = torch.zeros(shape)
-        elif name == "encoder.proj_w.spk_proj.bias":
-            val = torch.cat([torch.ones(shape[0] // 2), torch.zeros(shape[0] - shape[0] // 2)])
-        elif leaf == "gamma" and name.startswith("backbone.convnext"):
-            val = torch.full(shape, 1e-6)
-        elif leaf == "gamma" or (leaf == "weight" and len(shape) == 1):
-            val = torch.ones(shape)
-        elif leaf in ("bias", "beta", "alpha"):
-            val = torch.zeros(shape)
-        else:
-            fan_in = 1
-            for s in shape[1:]:
-                fan_in *= s
-            val = randn(shape) * fan_in ** -0.5
-        out[name] = val.to(torch.float32)
-    return out
 
 
 def init_params(cfg: MatchaConfig, generator: torch.Generator) -> dict[str, torch.Tensor]:

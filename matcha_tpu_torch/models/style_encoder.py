@@ -22,8 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from matcha_tpu_torch.models.config import MatchaConfig
-from matcha_tpu_torch.models.layers import Conv1d, Linear
-from matcha_tpu_torch.models.matcha import MatchaTTS, random_state_dict
+from matcha_tpu_torch.models.layers import Conv1d, Linear, random_state_dict
+from matcha_tpu_torch.models.matcha import MatchaTTS
 from matcha_tpu_torch.utils.model_math import sequence_mask
 
 

@@ -3,10 +3,10 @@
 F5-TTS's DiT (``models/dit.py``) wraps every GEMM of its blocks in
 memory-bound fp32 work: the adaLN modulation of the carry, RoPE and the head
 layout of q, k and v, the attention branch's dropout, row mask and gate, the
-FFN's GELU and dropout.  On the card ``models/dit.py`` calls the four ops
-below; each is a ``torch.autograd.Function`` whose forward and backward are
-kernels of ``csrc/dit_fused.cu`` (bf16 or fp32 narrow operands, fp32
-statistics, rotation, gates and carry):
+FFN's GELU and dropout.  ``models/dit.py`` calls the four ops below on
+every device; each is a ``torch.autograd.Function`` whose forward and
+backward are, on the card, kernels of ``csrc/dit_fused.cu`` (bf16 or fp32
+narrow operands, fp32 statistics, rotation, gates and carry):
 
   modulate(h, scale, shift, dtype, eps)  LN₀(h)·(1 + scale) + shift in dtype;
                                          saves h and each row's mean and rstd
@@ -17,17 +17,17 @@ statistics, rotation, gates and carry):
                                          branch), or y (FFN: p 0, no keep)
   gelu_dropout(x, p, gen)                dropout(GELU_tanh(x))
 
-They replace no Pallas kernel: the JAX package has no DiT.  On the CPU
-``models/dit.py`` keeps its eager expressions.  Every kernel has a plain
-version of its own contract here (``*_plain``): the Functions run them on a
-CPU tensor, which is how the CPU tests hold each hand-written backward
-against autograd of the eager expressions, and ``chip_smoke.py`` holds each
-kernel against them on the card.
+They replace no Pallas kernel: the JAX package has no DiT.  Every kernel
+has a plain version of its own contract here (``*_plain``): the Functions
+run them on a CPU tensor, which is how the CPU tests hold each hand-written
+backward against autograd of the formula and the model against its plain
+reference, and ``chip_smoke.py`` holds each kernel against them on the
+card.
 
 Dropout.  The uniforms are drawn as ``layers.dropout`` draws them,
 ``torch.rand(shape, generator=gen, device=...)``, in the model's order, and
-an element is kept where u < float32(1 − p); so the masks are those of the
-eager path and of the benchmark's plain reference.  The forward keeps them
+an element is kept where u < float32(1 − p); so the masks are those of
+``layers.dropout`` and of the benchmark's plain reference.  The forward keeps them
 as bits (``pack_bits``: a byte a run of 8 elements of the last axis, bit j
 element j) for the backward.  ``gen=None`` or p = 0 is the deterministic
 pass: nothing is drawn or dropped.

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from matcha_tpu_torch.models.config import MatchaConfig
-from matcha_tpu_torch.models.matcha import MatchaTTS, random_state_dict
+from matcha_tpu_torch.models.layers import random_state_dict
+from matcha_tpu_torch.models.matcha import MatchaTTS
 from matcha_tpu_torch.utils.mcd import DYNAMIC_RANGE_NAT, MCD_CONST, dtw_path_cost
 from matcha_tpu_torch.vocoder.vocos import Vocos, VocosConfig
 
@@ -94,7 +95,7 @@ def configs(compute_dtype: str) -> tuple[MatchaConfig, VocosConfig]:
 def draw_weights(seed: int = WEIGHT_SEED) -> tuple[dict, dict]:
     """(Matcha, Vocos) state_dicts in the port's layout, fp32 on the CPU,
     from one ``np.random.RandomState(seed)`` stream (Matcha first), in
-    ``models.matcha.random_state_dict``'s scheme.  Cached: callers must not
+    ``models.layers.random_state_dict``'s scheme.  Cached: callers must not
     write into the tensors."""
     rs = np.random.RandomState(seed)
     matcha_cfg, vocos_cfg = configs("float32")

@@ -17,8 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from matcha_tpu_torch.audio.mel import hann_window
-from matcha_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
-from matcha_tpu_torch.models.matcha import compute_dtype, random_state_dict
+from matcha_tpu_torch.models.layers import Conv1d, LayerNorm, Linear, compute_dtype, random_state_dict
 
 
 @dataclass(frozen=True)

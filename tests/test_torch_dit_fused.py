@@ -1,23 +1,26 @@
 """The DiT's fused glue (``ops/dit_fused.py``) on the CPU: each op's
 autograd Function, which runs the plain version of its kernel's contract on
 a CPU tensor (forward and the hand-written backward), against autograd of
-the eager expressions ``models/dit.py`` keeps for the CPU; the dropout
-masks against ``layers.dropout``'s; the bits; and the whole ``F5TTS`` step
-through the Functions against the eager step, and the DiT's output on
-padded rows too.  The kernels themselves
+its formula written out here or in the plain reference
+``tests/plain_f5tts.py``; the dropout masks against ``layers.dropout``'s;
+the bits; and the whole ``F5TTS`` step, which calls the four ops on every
+device, against the plain reference's step on the same draws and masks,
+and the DiT's output on padded rows too.  The kernels themselves
 (``ops/csrc/dit_fused.cu``) run only on a card: ``chip_smoke.py`` phase
 ``dit_fused`` holds them against these plain versions there.
 
 Tolerances, fp32 throughout: 1e-5 of the largest element for values and
 gradients (the LayerNorm's statistics and the column sums are summed in
 another order than autograd's; everything else is the same fp32 arithmetic,
-exact in practice); the whole step's loss 1e-5 relative and every leaf's
-gradient 1e-4 of its largest element (22 blocks' worth of such round-off
-in the tiny model).  RoPE's forward and the masks are held bit for bit.
+exact in practice); the whole step at ``test_torch_f5tts.py``'s one-step
+tolerance, the loss 1e-5 relative and every leaf's gradient 1e-5 of its
+largest element (or of the median leaf's where a leaf is smaller).  RoPE's
+forward and the masks are held bit for bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+import plain_f5tts as ref
 from matcha_tpu_torch.models import dit
 from matcha_tpu_torch.models.config import tiny_dit_config
 from matcha_tpu_torch.models.layers import dropout
@@ -64,13 +68,27 @@ def grads_of(out, inputs, dout):
     return torch.autograd.grad(out, inputs, dout)
 
 
+def modulate_formula(h, scale, shift):
+    """LN₀(h)·(1 + scale) + shift in fp32, by autograd."""
+    return F.layer_norm(h, (h.shape[-1],), eps=dit.LN_EPS) * (1.0 + scale) + shift
+
+
+def rope_formula(x, heads):
+    """(B, N, H·D) → (B, H, N, D) in x's dtype: each head rotated in fp32 as
+    the plain reference rotates it (x-transformers' interleaved pairs)."""
+    b, n, inner = x.shape
+    xh = x.float().reshape(b, n, heads, -1).transpose(1, 2)
+    freqs = ref.rotary(n, inner // heads, x.device)
+    return (xh * freqs.cos() + ref.rotate_half(xh) * freqs.sin()).to(x.dtype).contiguous()
+
+
 @pytest.mark.parametrize("b,n", SHAPES)
 def test_modulate_matches_the_eager_expression(b, n):
     gen = torch.Generator().manual_seed(b * 100 + n)
     h = (torch.randn((b, n, WIDTH), generator=gen) * 3 + 1.5).requires_grad_()
     base, (shift, scale, *_) = vectors(b, WIDTH, n)
     dy = torch.randn((b, n, WIDTH), generator=gen)
-    want = dit.modulate(h, scale, shift)
+    want = modulate_formula(h, scale, shift)
     got = dit_fused.modulate(h, scale, shift, torch.float32, dit.LN_EPS, "attn")
     close(got, want)
     for g, w in zip(grads_of(got, (h, base), dy), grads_of(want, (h, base), dy)):
@@ -81,7 +99,7 @@ def test_modulate_rounds_once_to_the_products_dtype():
     gen = torch.Generator().manual_seed(7)
     h = torch.randn((2, 11, WIDTH), generator=gen)
     _, (shift, scale, *_) = vectors(2, WIDTH, 3)
-    want = dit.modulate(h, scale, shift).to(torch.bfloat16)
+    want = modulate_formula(h, scale, shift).to(torch.bfloat16)
     got = dit_fused.modulate(h, scale, shift, torch.bfloat16, dit.LN_EPS)
     assert got.dtype == torch.bfloat16
     close(got, want, 2**-7)
@@ -104,8 +122,7 @@ def test_rope_heads_match_the_eager_layout(b, n, dtype):
     gen = torch.Generator().manual_seed(n)
     rope = dit._table("rope", dim_head, n, "cpu")
     q, k, v = (torch.randn((b, n, heads * dim_head), generator=gen).to(dtype).requires_grad_() for _ in range(3))
-    want = (dit.apply_rope(q, rope, heads), dit.apply_rope(k, rope, heads),
-            v.reshape(b, n, heads, -1).transpose(1, 2).contiguous())
+    want = (rope_formula(q, heads), rope_formula(k, heads), v.reshape(b, n, heads, -1).transpose(1, 2).contiguous())
     got = dit_fused.rope_heads(q, k, v, rope, heads)
     for g, w in zip(got, want):
         assert g.shape == (b, heads, n, dim_head) and g.is_contiguous() and g.dtype == dtype
@@ -200,18 +217,34 @@ def test_a_probability_of_one_is_refused():
         dit_fused.uniforms((2, 8), 1.0, torch.Generator(), "cpu")
 
 
-def f5_loss_and_grads(model, params, n=20, seed=11):
-    rng = np.random.default_rng(seed)
-    b = 3
-    y_len = torch.tensor([n, n - 5, n - 9])
-    x = torch.tensor(rng.integers(1, 50, (b, 6)))
-    x_len = torch.tensor([6, 5, 3])
-    y = torch.tensor(rng.standard_normal((b, n, model.cfg.n_feats)), dtype=torch.float32)
-    losses = functional_call(model, params, (x, x_len, y, y_len, torch.Generator().manual_seed(seed)),
-                             {"dropout_generator": torch.Generator().manual_seed(seed + 1),
-                              "row_weights": torch.tensor([1.0, 1.0, 0.0])})
+SEED, STEP = 11, 0  # a step with neither guidance drop: text and audio both feed the DiT
+
+
+def f5_batch(cfg, n=20):
+    """Three ragged rows, the last a weight-0 fill row."""
+    rng = np.random.default_rng(SEED)
+    return {"x": torch.tensor(rng.integers(1, 50, (3, 6))), "x_lengths": torch.tensor([6, 5, 3]),
+            "y": torch.tensor(rng.standard_normal((3, n, cfg.n_feats)), dtype=torch.float32),
+            "y_lengths": torch.tensor([n, n - 5, n - 9]), "weights": torch.tensor([1.0, 1.0, 0.0])}
+
+
+def f5_loss_and_grads(model, params, batch):
+    """The port's loss and every leaf's gradient, on the draws and masks the
+    plain reference's ``losses`` makes at (SEED, STEP)."""
+    drop_audio, drop_text = ref.drops(SEED, STEP)
+    losses = functional_call(
+        model, params, (batch["x"], batch["x_lengths"], batch["y"], batch["y_lengths"],
+                        torch.Generator().manual_seed(ref.step_seed(SEED, STEP))),
+        {"drop_audio": drop_audio, "drop_text": drop_text, "row_weights": batch["weights"],
+         "dropout_generator": torch.Generator().manual_seed(ref.step_seed(SEED, STEP, 0, 2))})
     grads = torch.autograd.grad(losses["loss"], list(params.values()))
-    return float(losses["loss"].detach()), dict(zip(params, grads))
+    return losses["loss"], dict(zip(params, grads))
+
+
+def plain_model(model, params):
+    plain = ref.F5TTS(dataclasses.asdict(model.cfg))
+    plain.load_state_dict({k: v.detach() for k, v in params.items()})
+    return plain
 
 
 @pytest.fixture(scope="module")
@@ -222,48 +255,69 @@ def f5():
     return model, params
 
 
+def backward_nodes(loss) -> dict:
+    """How often each autograd node type appears in ``loss``'s graph."""
+    seen, stack, counts = set(), [loss.grad_fn], {}
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        counts[type(node).__name__] = counts.get(type(node).__name__, 0) + 1
+        stack.extend(nxt for nxt, _ in node.next_functions)
+    return counts
+
+
 def test_f5tts_on_the_cpu_takes_the_eager_path(f5):
+    """On the CPU the blocks call the four ops as on the card, so each op's
+    Function is in the step's graph as often as the card launches its kernel,
+    and each runs its plain version: no launch counter moves."""
+    model, params = f5
     for counter in dit_fused.COUNTERS:
         counter.reset()
-    loss, _ = f5_loss_and_grads(*f5)
-    assert np.isfinite(loss)
+    loss, _ = f5_loss_and_grads(model, params, f5_batch(model.cfg))
+    assert np.isfinite(float(loss.detach()))
     assert {c.name: c.launches for c in dit_fused.COUNTERS} == {c.name: 0 for c in dit_fused.COUNTERS}
-    assert not dit.fused_path(torch.zeros(1))
+    depth, nodes = model.cfg.depth, backward_nodes(loss)
+    assert {name: nodes.get(name, 0) for name in ("_ModulateBackward", "_RopeHeadsBackward",
+                                                  "_GatedResidualBackward", "_GeluDropoutBackward")} == {
+        "_ModulateBackward": 2 * depth + 1, "_RopeHeadsBackward": depth,
+        "_GatedResidualBackward": 2 * depth, "_GeluDropoutBackward": depth}
 
 
-def test_the_fused_step_is_the_eager_step(f5, monkeypatch):
-    """The blocks through the four Functions (their plain versions on the
-    CPU), the same masks drawn in the same order: the eager step's loss and
-    gradients."""
-    want_loss, want = f5_loss_and_grads(*f5)
-    monkeypatch.setattr(dit, "fused_path", lambda x: True)
-    got_loss, got = f5_loss_and_grads(*f5)
-    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
-    for name in want:
-        close(got[name], want[name], 1e-4)
+def test_the_fused_step_is_the_eager_step(f5):
+    """The port's step, its blocks through the four Functions (their plain
+    versions on the CPU), against the plain fp32 reference's eager step on
+    the same draws and dropout masks: the loss and every leaf's gradient."""
+    model, params = f5
+    batch = f5_batch(model.cfg)
+    got_loss, got = f5_loss_and_grads(model, params, batch)
+    plain = plain_model(model, params)
+    loss = ref.losses(plain, batch, SEED, STEP)["loss"]
+    want = dict(zip(params, torch.autograd.grad(loss, [plain.get_parameter(n) for n in params])))
+    assert float(got_loss.detach()) == pytest.approx(float(loss.detach()), rel=1e-5)
+    med = float(np.median([float(g.abs().max()) for g in want.values()]))
+    for name, g in want.items():
+        assert float((got[name] - g).abs().max()) <= 1e-5 * max(float(g.abs().max()), med), name
 
 
-def test_the_fused_forward_is_the_eager_one_on_padded_rows_too(f5, monkeypatch):
+def test_the_fused_forward_is_the_eager_one_on_padded_rows_too(f5):
     """The DiT's output at every position, padded rows included, with
-    dropout on: the padded rows get the values they get on the eager path
-    (the loss alone cannot see them)."""
+    dropout on, against the plain reference's on the same masks (the loss
+    alone cannot see the padded rows)."""
     model, params = f5
     model.load_state_dict({k: v.detach() for k, v in params.items()})
+    plain = plain_model(model, params)
     cfg = model.cfg
     b, n = 3, 19
     gen = torch.Generator().manual_seed(3)
     xt, cond = torch.randn((b, n, cfg.n_feats), generator=gen), torch.randn((b, n, cfg.n_feats), generator=gen)
     text = torch.randn((b, n, cfg.text_dim), generator=gen)
     t = torch.rand((b,), generator=gen)
-    keep = ragged_keep(b, n, 4)[..., None]
-
-    def forward():
-        with torch.no_grad():
-            return model.transformer(xt, cond, text, t, keep, False, torch.Generator().manual_seed(8))
-
-    want = forward()
-    monkeypatch.setattr(dit, "fused_path", lambda x: True)
-    got = forward()
+    keep = ragged_keep(b, n, 4)
+    with torch.no_grad():
+        got = model.transformer(xt, cond, text, t, keep[..., None], False, torch.Generator().manual_seed(8))
+        want = plain.transformer(xt, cond, text, t, keep, False, torch.Generator().manual_seed(8))
     assert not keep.all()
     close(got, want)
 

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from matcha_tpu_torch.models.config import tiny_config
-from matcha_tpu_torch.models.matcha import MatchaTTS, random_state_dict
+from matcha_tpu_torch.models.layers import random_state_dict
+from matcha_tpu_torch.models.matcha import MatchaTTS
 from matcha_tpu_torch.utils import hw_gate
 from matcha_tpu_torch.utils import hw_parity as hp
 

@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, no flax/optax, nothing of matcha_tpu/tools.
 
 An AST scan of every module of ``matcha_tpu_torch/`` and of
-``chip_smoke.py`` (imports anywhere in a file, lazy ones included).
+``chip_smoke.py`` (imports anywhere in a file, lazy ones included); and of
+the model layer (``models/``, ``vocoder/``) for reads of the device and
+helpers borrowed from another model.
 """
 
 import ast
@@ -49,6 +51,36 @@ def test_scan_covers_the_measuring_entry_points(module):
 def test_no_forbidden_imports(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _model_layer_files():
+    port = ROOT / "matcha_tpu_torch"
+    return sorted((port / "models").rglob("*.py")) + sorted((port / "vocoder").rglob("*.py"))
+
+
+def _names_a_device(node) -> bool:
+    return (isinstance(node, ast.Name) and node.id == "device") or (
+        isinstance(node, ast.Attribute) and node.attr == "device")
+
+
+@pytest.mark.parametrize("path", _model_layer_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_the_model_layer_leaves_the_device_to_the_ops(path):
+    """A model or the vocoder never picks its path by device (``ops/`` alone
+    chooses between a kernel and its plain version), and takes the helpers
+    it shares from ``models/layers.py``: from ``models.matcha`` and
+    ``models.decoder`` it imports a model class, nothing else."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    reads = [ast.unparse(node) for node in ast.walk(tree) if isinstance(node, ast.Attribute) and (
+        node.attr == "is_cuda" or (node.attr == "type" and _names_a_device(node.value)))]
+    assert not reads, f"{path.relative_to(ROOT)} reads {reads}"
+    models = "matcha_tpu_torch.models"
+    borrowed = [f"{node.module}.{alias.name}" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)
+                for alias in node.names
+                if (node.module in (f"{models}.matcha", f"{models}.decoder") and not alias.name[0].isupper())
+                or (node.module == models and alias.name in ("matcha", "decoder"))]
+    borrowed += [alias.name for node in ast.walk(tree) if isinstance(node, ast.Import) for alias in node.names
+                 if alias.name in (f"{models}.matcha", f"{models}.decoder")]
+    assert not borrowed, f"{path.relative_to(ROOT)} borrows {borrowed}"
 
 
 def test_synthesizer_without_device_raises_without_cuda():
