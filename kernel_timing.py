@@ -13,8 +13,11 @@ file), builds its kernels, and times, with CUDA events after a spin kernel
   layout on its own as well; the encoder's training shape (62,6,224,48),
   the v20 decoder's (62,6,512,64) and their tensor-parallel halves
   (62,3,512,64), (62,3,224,48), each with and without the log-sum-exp;
-- the two backward kernels (K1b) at the training shapes, those four
-  included, beside SDPA's backward (dq, dk, dv);
+- the backward (K1b) at the training shapes, those four included, and
+  at the DiT's, beside SDPA's backward (dq, dk, dv): ``pair`` is the whole
+  backward's device time, the fused pass with its delta pre-pass and dq
+  post-pass, or a checkout's split pair (dk/dv kernel, then dq kernel;
+  its PyTorch delta timed apart as ``delta``);
 - monotonic alignment search (K2+K3) at the two training buckets.
 
 Prints one JSON line.  Needs a CUDA card.  To compare two checkouts, run
@@ -39,7 +42,8 @@ FWD_SHAPES = {"b1": [(1, 6, 256, 48), (1, 5, 512, 64), (1, 5, 256, 64)],
               "b16": [(16, 6, 256, 48), (16, 5, 512, 64), (16, 5, 256, 64)],
               "train": [(62, 5, 512, 64), (29, 5, 1088, 64)] + NEW_SIGNATURES,
               "no_lse": NEW_SIGNATURES}
-BWD_SHAPES = [(62, 5, 512, 64), (29, 5, 1088, 64)] + NEW_SIGNATURES
+DIT_SHAPES = [(13, 16, 2816, 64), (13, 16, 2848, 64), (52, 16, 736, 64), (50, 16, 768, 64)]
+BWD_SHAPES = [(62, 5, 512, 64), (29, 5, 1088, 64)] + NEW_SIGNATURES + DIT_SHAPES
 MAS_SHAPES = [(62, 224, 1024), (29, 448, 2176)]
 
 
@@ -75,14 +79,21 @@ def time_backward(att, gen) -> dict:
         valid = torch.ones((b, t), device="cuda")
         valid_u8 = valid.to(torch.uint8)
         o, lse = att._launch_fwd(q, k, v, valid_u8, with_lse=True)
-        delta = (dout.float() * o.float()).sum(-1)
-        dkv = cuda_ms(lambda: att.masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8))
-        dq = cuda_ms(lambda: att.masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8))
+        if hasattr(att, "masked_attention_bwd_count"):  # one launch: delta, dq, dk, dv
+            pair = cuda_ms(lambda: att.masked_attention_bwd_dkv(q, k, v, dout, lse, o, valid_u8))
+            entry = {}
+        else:  # the split pair, delta computed outside it
+            delta = (dout.float() * o.float()).sum(-1)
+            entry = {"masked_attention_bwd_dkv": cuda_ms(
+                         lambda: att.masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8)),
+                     "masked_attention_bwd_dq": cuda_ms(
+                         lambda: att.masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8)),
+                     "delta": cuda_ms(lambda: (dout.float() * o.float()).sum(-1))}
+            pair = entry["masked_attention_bwd_dkv"] + entry["masked_attention_bwd_dq"]
         qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=valid[:, None, None, :] > 0)
         sdpa = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True))
-        out[str(list(shape))] = {"masked_attention_bwd_dkv": dkv, "masked_attention_bwd_dq": dq,
-                                 "pair": dkv + dq, "sdpa_backward": sdpa}
+        out[str(list(shape))] = {**entry, "pair": pair, "sdpa_backward": sdpa}
     return out
 
 

@@ -25,16 +25,26 @@ sends every attention call on a CUDA tensor to its kernel, at any T.
 Gradients.  On a CUDA tensor that requires grad, the call goes through
 ``MaskedAttention`` (a ``torch.autograd.Function``): its forward is the same
 kernel, which then also writes the (B, H, T) fp32 log-sum-exp, and its
-backward launches the two backward kernels of ``csrc/masked_attention_bwd.cu``
-(``masked_attention_bwd_dkv``, ``masked_attention_bwd_dq``), which replace
-the Pallas TPU backward (``_flash_attention_bwd_dkv`` and
-``_flash_attention_bwd_dq`` in the same file).  Without grad the forward
-writes no log-sum-exp.  On a CPU tensor autograd runs through the plain
-version.  Each backward kernel alone has a plain version of its own
-contract, ``masked_attention_bwd_plain`` (from the forward's
-``masked_attention_lse_plain``), which the tests and ``chip_smoke.py``
-hold it against.  The bf16 kernels read their operands by TMA, which needs
-16-byte row strides: a head dim that is not a multiple of 8 is zero-padded
+backward is one call of ``masked_attention_bwd_dkv``, which launches the
+backward of ``csrc/masked_attention_bwd.cu`` and replaces the Pallas TPU
+backward (``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq`` in
+the same file).  bf16 runs it as one warp-specialised pass that computes
+dq, dk and dv from the five products the backward needs (S, dP, dV, dK,
+dQ), between a pre-pass kernel that computes delta = rowsum(dO∘O) from
+the bf16 tensors and a post-pass that writes dq from its fp32
+accumulator; the pass adds each key block's dq into that accumulator by
+TMA reduce-adds, in an order that changes from run to run, so bf16 dq is
+not bit-repeatable (dk, dv are).  Its bound at the DiT's (13,16,2848,64)
+is 1,091 µs; the split pair it replaced (a dk/dv kernel, then a dq
+kernel, 7 products) could not pass 5/7 of it and reached 23 %.  fp32 runs
+the pre-pass and the two exact reference kernels.  Without grad the
+forward writes no log-sum-exp.  On a CPU tensor autograd runs through the
+plain version.  The backward has a plain version of its own contract,
+``masked_attention_bwd_plain`` (from the forward's
+``masked_attention_lse_plain`` and ``masked_attention_delta_plain``, the
+pre-pass's twin), which the tests and ``chip_smoke.py`` hold it against.
+The bf16 kernels read their operands by TMA, which needs 16-byte row
+strides: a head dim that is not a multiple of 8 is zero-padded
 (``pad_head_dim``), the kernels get the true head dim's scale, and the
 output and gradients are sliced back.
 
@@ -58,8 +68,7 @@ LOG2E = 1.4426950408889634
 TMA_HEAD_DIM_MULTIPLE = 8  # bf16 rows of a multiple of 16 bytes
 
 masked_attention_fwd_count = LaunchCounter("masked_attention_fwd")
-masked_attention_bwd_dkv_count = LaunchCounter("masked_attention_bwd_dkv")
-masked_attention_bwd_dq_count = LaunchCounter("masked_attention_bwd_dq")
+masked_attention_bwd_count = LaunchCounter("masked_attention_bwd")
 
 
 def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None, scale=None):
@@ -117,6 +126,26 @@ def masked_attention_bwd_plain(q, k, v, dout, lse, delta, key_valid, scale=None)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def masked_attention_delta_plain(dout, out, lanes: int = 8, chunk: int = 8):
+    """delta = rowsum(dout∘out) in fp32, (B, H, T), summed as the backward's
+    pre-pass kernel sums it: lane s of ``lanes`` adds the products of the
+    ``chunk``-element chunks s, s + lanes, ... in order, then the lanes' sums
+    are added pairwise (lanes 0+1, 2+3, ..., then those pairs), each
+    product rounded to fp32 before it is added: the kernel's sum to the
+    bit."""
+    prod = dout.float() * out.float()
+    d = prod.shape[-1]
+    prod = torch.nn.functional.pad(prod, (0, -d % (lanes * chunk)))
+    prod = prod.reshape(*prod.shape[:-1], -1, lanes, chunk)  # (..., chunk round, lane, element)
+    acc = torch.zeros(prod.shape[:-3] + (lanes,), dtype=torch.float32, device=prod.device)
+    for m in range(prod.shape[-3]):
+        for e in range(chunk):
+            acc = acc + prod[..., m, :, e]
+    while acc.shape[-1] > 1:
+        acc = acc[..., 0::2] + acc[..., 1::2]
+    return acc[..., 0]
+
+
 def pad_head_dim(tensors, multiple: int = TMA_HEAD_DIM_MULTIPLE):
     """The tensors zero-padded along the last (head) dim to a multiple of
     ``multiple``; unchanged when it already is one.  Zero columns add
@@ -167,27 +196,27 @@ def _launch_fwd(q, k, v, valid_u8, with_lse: bool, layout: int = 0):
     return out[..., :d], lse
 
 
-def masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8):
-    """The dk, dv kernel's wrapper: (B, H, T, D) CUDA tensors in one dtype,
-    the forward's (B, H, T) fp32 ``lse`` and ``delta = rowsum(dout·out)``,
-    a (B, T) uint8 key mask.  Returns (dk, dv)."""
+def masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8):
+    """The backward's one launch: (dq, dk, dv) of (B, H, T, D) CUDA tensors
+    in one dtype, from the forward's ``out`` and (B, H, T) fp32 ``lse`` and a
+    (B, T) uint8 key mask.  bf16: the delta pre-pass, the fused pass and the
+    dq post-pass; fp32: the pre-pass and the two reference kernels.  The
+    name (and the mask at position 6) is what ``benchmark/harness.py``
+    records as the backward's launch."""
     signature = (tuple(q.shape), str(q.dtype).split(".")[-1])
-    d, scale, (q, k, v, dout) = _kernel_operands(q, k, v, dout)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    kernels().masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8, dk, dv, scale)
-    masked_attention_bwd_dkv_count.add(signature)
-    return dk[..., :d], dv[..., :d]
+    d, scale, (q, k, v, dout, out) = _kernel_operands(q, k, v, dout, out)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty(q.shape if q.dtype == torch.bfloat16 else (0,), dtype=torch.float32, device=q.device)
+    kernels().masked_attention_bwd(q, k, v, dout, out, lse, valid_u8, delta, dq_acc, dq, dk, dv, scale)
+    masked_attention_bwd_count.add(signature)
+    return dq[..., :d], dk[..., :d], dv[..., :d]
 
 
-def masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8):
-    """The dq kernel's wrapper; same inputs as ``masked_attention_bwd_dkv``."""
-    signature = (tuple(q.shape), str(q.dtype).split(".")[-1])
-    d, scale, (q, k, v, dout) = _kernel_operands(q, k, v, dout)
-    dq = torch.empty_like(q)
-    kernels().masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8, dq, scale)
-    masked_attention_bwd_dq_count.add(signature)
-    return dq[..., :d]
+def masked_attention_bwd_dq(q, k, v, dout, lse, out, valid_u8):
+    """dq alone: the first gradient of ``masked_attention_bwd_dkv``'s launch
+    (``benchmark/harness.py`` wraps this name beside it)."""
+    return masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8)[0]
 
 
 class MaskedAttention(torch.autograd.Function):
@@ -203,9 +232,7 @@ class MaskedAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, valid_u8, out, lse = ctx.saved_tensors
         dout = dout.to(q.dtype).contiguous()
-        delta = (dout.float() * out.float()).sum(dim=-1)
-        dk, dv = masked_attention_bwd_dkv(q, k, v, dout, lse, delta, valid_u8)
-        dq = masked_attention_bwd_dq(q, k, v, dout, lse, delta, valid_u8)
+        dq, dk, dv = masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8)
         return dq, dk, dv, None
 
 

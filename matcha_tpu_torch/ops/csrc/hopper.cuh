@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels: mbarriers,
-// TMA loads and stores through 3-D tensor maps, wgmma m64n64k16 (bf16 in,
-// fp32 accumulate) with shared-memory descriptors of 128-byte-swizzled
-// tiles, and the tensor-map encoder, taken from the runtime's driver entry
-// point so no source links libcuda.
+// TMA loads, stores and reduce-adds through 3-D tensor maps, wgmma m64n64k16
+// and m64n32k16 (bf16 in, fp32 accumulate) with shared-memory descriptors of
+// 128-byte-swizzled tiles, and the tensor-map encoder, taken from the
+// runtime's driver entry point so no source links libcuda.
 //
 // Every tile is a (64 rows × 64 bf16 columns) box, 8 KB, laid out by TMA's
 // 128-byte swizzle: 16-byte chunk j of row r sits at chunk j ^ (r % 8).
@@ -75,6 +75,28 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
                : "memory");
 }
 
+// TMA reduce-add of a shared-memory box into the tensor, where `pred`;
+// predicated, not branched, so it may sit among wgmma in flight
+__device__ __forceinline__ void tma_reduce_add_3d_if(const CUtensorMap* map, uint32_t src, int c0,
+                                                     int c1, int c2, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "@p cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n}\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk groups but the newest N have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_store_drain() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -96,9 +118,10 @@ __device__ __forceinline__ void warpgroup_sync(int wg) { named_sync(1 + wg, 128)
 // (rows of 128 bytes along the reduction): leading offset unused (16),
 // stride 1024 bytes between 8-row groups; a k16 step adds 32 bytes.
 // MN-major (the transposed read): the reduction runs over rows, 1024 bytes
-// between 8-row groups; every MN-major product here is 64 wide, exactly one
-// swizzle atom, so the leading offset (between atoms) is never used and is
-// given the same 1024; a k16 step adds 16 rows, 2048 bytes.
+// between 8-row groups; every MN-major operand here is at most 64 wide, one
+// swizzle atom (a 32-wide one starts 64 bytes into it), so the leading
+// offset (between atoms) is never used and is given the same 1024; a k16
+// step adds 16 rows, 2048 bytes.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
@@ -153,6 +176,40 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64×64 fp32) += A·B, A K-major and B MN-major in shared memory
+__device__ __forceinline__ void wgmma_sn(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_WGMMA_REGS32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_WGMMA_D32
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64×64 fp32) = [d +] A·B, both MN-major in shared memory (the transposed
+// reads: A's rows and B's columns run along the 128-byte rows of their tiles)
+__device__ __forceinline__ void wgmma_tt(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_WGMMA_REGS32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : HOPPER_WGMMA_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the same, 64×32: B is the left or right half of a 64-column tile
+__device__ __forceinline__ void wgmma_tt(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef HOPPER_WGMMA_D32
 #undef HOPPER_WGMMA_REGS32
 
@@ -192,6 +249,23 @@ __device__ __forceinline__ void acc_to_box(uint8_t* box, const float (&d)[32], f
     }
 }
 
+// this warpgroup's 64-row fp32 accumulator of R/2 columns (R/16 boxes of 32)
+// into fp32 boxes laid out as TMA's 128-byte swizzle, 8 KB apart:
+// columns 8j + 2t + c go to box j / 4, 16-byte chunk 2·(j % 4) + t / 2
+template <int R>
+__device__ __forceinline__ void acc_to_f32_boxes(uint8_t* box, const float (&d)[R], int warp, int g,
+                                                 int t) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * warp + g + 8 * i;
+      const int chunk = 2 * (j % 4) + (t >> 1);
+      *reinterpret_cast<float2*>(box + (j / 4) * 8192 + r * 128 + ((chunk ^ g) << 4) + 8 * (t & 1)) =
+          make_float2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+    }
+}
+
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
 // extension does not link libcuda
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -227,6 +301,21 @@ inline bool encode_heads(CUtensorMap* map, const void* ptr, int bh, int seq, int
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (B·H, T, dim) fp32 rows as 3-D (dim, T, B·H), 32 × 64 boxes (128-byte
+// rows), 128-byte swizzle: the target of TMA reduce-adds
+inline bool encode_heads_f32(CUtensorMap* map, const void* ptr, int bh, int seq, int dim) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dim), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dim) * 4,
+                                 static_cast<cuuint64_t>(seq) * dim * 4};
+  const cuuint32_t box[3] = {32, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

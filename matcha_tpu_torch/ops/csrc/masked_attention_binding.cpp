@@ -18,18 +18,13 @@ const char* masked_attention_fwd_launch(const void* q, const void* k, const void
                                         float qk_scale_log2, int layout, cudaStream_t stream);
 int masked_attention_fwd_layout(int batch, int n_heads, int seq);
 cudaError_t masked_attention_fwd_attributes(int layout, int dim, int* out);
-const char* masked_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
-                                            const void* dout, const float* lse,
-                                            const float* delta, const uint8_t* key_valid,
-                                            void* dk, void* dv, int batch, int n_heads, int seq,
-                                            int dim, float scale, bool bf16,
-                                            cudaStream_t stream);
-const char* masked_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
-                                           const void* dout, const float* lse, const float* delta,
-                                           const uint8_t* key_valid, void* dq, int batch,
-                                           int n_heads, int seq, int dim, float scale, bool bf16,
-                                           cudaStream_t stream);
-cudaError_t masked_attention_bwd_attributes(int kernel, int dim, int* out);
+const char* masked_attention_bwd_launch(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* out, const float* lse,
+                                        const uint8_t* key_valid, float* delta, float* dq_acc,
+                                        void* dq, void* dk, void* dv, int batch, int n_heads,
+                                        int seq, int dim, float scale, bool bf16,
+                                        cudaStream_t stream);
+cudaError_t masked_attention_bwd_attributes(int dim, int* out);
 long long mas_scratch_words(int batch, int tx, int ty);
 cudaError_t mas_launch(const float* value, const int* x_len, const int* y_len, int* idx,
                        uint32_t* scratch, int batch, int tx, int ty, cudaStream_t stream);
@@ -135,52 +130,38 @@ void masked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// dk, dv of the masked attention from the forward's lse and
-// delta = rowsum(dout * out) in fp32, at softmax scale `scale` (that of the
-// true head dim when the wrapper padded it).  Writes dk, dv; allocates
-// nothing.
-void masked_attention_bwd_dkv(const torch::Tensor& q, const torch::Tensor& k,
-                              const torch::Tensor& v, const torch::Tensor& dout,
-                              const torch::Tensor& lse, const torch::Tensor& delta,
-                              const torch::Tensor& key_valid, const torch::Tensor& dk,
-                              const torch::Tensor& dv, double scale) {
-  const auto [batch, n_heads, seq, dim] = check_heads(q, {&q, &k, &v, &dout, &dk, &dv});
+// dq, dk, dv of the masked attention from the forward's out and lse, at
+// softmax scale `scale` (that of the true head dim when the wrapper padded
+// it).  delta: (B, H, T) fp32 scratch, filled with rowsum(dout * out);
+// dq_acc: for bf16 a (B, H, T, D) fp32 scratch the dq products are summed
+// in, for fp32 empty.  Writes dq, dk, dv; allocates nothing.
+void masked_attention_bwd(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
+                          const torch::Tensor& dout, const torch::Tensor& out,
+                          const torch::Tensor& lse, const torch::Tensor& key_valid,
+                          const torch::Tensor& delta, const torch::Tensor& dq_acc,
+                          const torch::Tensor& dq, const torch::Tensor& dk, const torch::Tensor& dv,
+                          double scale) {
+  const auto [batch, n_heads, seq, dim] =
+      check_heads(q, {&q, &k, &v, &dout, &out, &dq, &dk, &dv});
   check_mask(key_valid, q, batch, seq);
   check_rows(lse, q, "lse");
   check_rows(delta, q, "delta");
+  const bool bf16 = q.scalar_type() == torch::kBFloat16;
+  if (bf16)
+    TORCH_CHECK(dq_acc.is_cuda() && dq_acc.device() == q.device() && dq_acc.is_contiguous() &&
+                    dq_acc.scalar_type() == torch::kFloat32 && dq_acc.sizes() == q.sizes(),
+                "dq_acc must be a contiguous (B, H, T, D) float32 tensor on q's device");
   if (q.numel() == 0) return;
 
   const c10::cuda::CUDAGuard guard(q.device());
-  const char* err = masked_attention_bwd_dkv_launch(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr<float>(),
-      delta.data_ptr<float>(), key_valid.data_ptr<uint8_t>(), dk.data_ptr(), dv.data_ptr(),
+  const char* err = masked_attention_bwd_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr(),
+      lse.data_ptr<float>(), key_valid.data_ptr<uint8_t>(), delta.data_ptr<float>(),
+      bf16 ? dq_acc.data_ptr<float>() : nullptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
       static_cast<int>(batch), static_cast<int>(n_heads), static_cast<int>(seq),
-      static_cast<int>(dim), static_cast<float>(scale), q.scalar_type() == torch::kBFloat16,
+      static_cast<int>(dim), static_cast<float>(scale), bf16,
       c10::cuda::getCurrentCUDAStream().stream());
-  TORCH_CHECK(err == nullptr, "masked_attention_bwd_dkv: ", err);
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-}
-
-// dq of the masked attention; same inputs as masked_attention_bwd_dkv.
-void masked_attention_bwd_dq(const torch::Tensor& q, const torch::Tensor& k,
-                             const torch::Tensor& v, const torch::Tensor& dout,
-                             const torch::Tensor& lse, const torch::Tensor& delta,
-                             const torch::Tensor& key_valid, const torch::Tensor& dq,
-                             double scale) {
-  const auto [batch, n_heads, seq, dim] = check_heads(q, {&q, &k, &v, &dout, &dq});
-  check_mask(key_valid, q, batch, seq);
-  check_rows(lse, q, "lse");
-  check_rows(delta, q, "delta");
-  if (q.numel() == 0) return;
-
-  const c10::cuda::CUDAGuard guard(q.device());
-  const char* err = masked_attention_bwd_dq_launch(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr<float>(),
-      delta.data_ptr<float>(), key_valid.data_ptr<uint8_t>(), dq.data_ptr(),
-      static_cast<int>(batch), static_cast<int>(n_heads), static_cast<int>(seq),
-      static_cast<int>(dim), static_cast<float>(scale), q.scalar_type() == torch::kBFloat16,
-      c10::cuda::getCurrentCUDAStream().stream());
-  TORCH_CHECK(err == nullptr, "masked_attention_bwd_dq: ", err);
+  TORCH_CHECK(err == nullptr, "masked_attention_bwd: ", err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -189,15 +170,12 @@ std::map<std::string, int64_t> attributes_map(const int* out) {
           {"local_bytes", out[3]}, {"threads", out[4]}};
 }
 
-// cudaFuncGetAttributes of the bf16 backward kernel ("dq" or "dkv") that
-// serves head dim `dim`, on the current device.
-std::map<std::string, int64_t> masked_attention_bwd_attributes_binding(const std::string& kernel,
-                                                                       int64_t dim) {
-  TORCH_CHECK(kernel == "dq" || kernel == "dkv", "kernel must be \"dq\" or \"dkv\"");
+// cudaFuncGetAttributes of the bf16 backward kernel that serves head dim
+// `dim`, on the current device.
+std::map<std::string, int64_t> masked_attention_bwd_attributes_binding(int64_t dim) {
   TORCH_CHECK(dim >= 1 && dim <= 128, "head dim must be in [1, 128]");
   int out[5];
-  const cudaError_t err =
-      masked_attention_bwd_attributes(kernel == "dq" ? 0 : 1, static_cast<int>(dim), out);
+  const cudaError_t err = masked_attention_bwd_attributes(static_cast<int>(dim), out);
   TORCH_CHECK(err == cudaSuccess, "cudaFuncGetAttributes: ", cudaGetErrorString(err));
   return attributes_map(out);
 }
@@ -602,10 +580,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "the bf16 forward layout (1 or 2) chosen by shape");
   m.def("masked_attention_fwd_attributes", &masked_attention_fwd_attributes_binding,
         "registers, shared memory and local bytes of a bf16 forward kernel");
-  m.def("masked_attention_bwd_dkv", &masked_attention_bwd_dkv,
-        "masked self-attention backward, dk and dv (sm_90a), in place");
-  m.def("masked_attention_bwd_dq", &masked_attention_bwd_dq,
-        "masked self-attention backward, dq (sm_90a), in place");
+  m.def("masked_attention_bwd", &masked_attention_bwd,
+        "masked self-attention backward, dq, dk and dv (sm_90a), in place");
   m.def("masked_attention_bwd_attributes", &masked_attention_bwd_attributes_binding,
         "registers, shared memory and local bytes of a bf16 backward kernel");
   m.def("mas_scratch_words", &mas_scratch_words_binding,

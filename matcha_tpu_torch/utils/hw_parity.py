@@ -415,8 +415,7 @@ def launch_counters() -> dict:
     from matcha_tpu_torch.ops import attention, mas
 
     return {"masked_attention_fwd": attention.masked_attention_fwd_count,
-            "masked_attention_bwd_dq": attention.masked_attention_bwd_dq_count,
-            "masked_attention_bwd_dkv": attention.masked_attention_bwd_dkv_count,
+            "masked_attention_bwd": attention.masked_attention_bwd_count,
             "mas": mas.mas_count}
 
 

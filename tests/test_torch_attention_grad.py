@@ -124,3 +124,30 @@ def test_cpu_call_carries_grad_fn():
     q.requires_grad_()
     out = ta.masked_self_attention(q, k, v, valid)
     assert out.grad_fn is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 36, 48, 64, 100, 128])
+def test_delta_plain_twin_is_the_fp32_rowsum(dtype, d):
+    """The backward pre-pass's plain twin (rowsum(dO∘O) summed in the
+    kernel's lane order) against the fp32 and float64 rowsums: any order of
+    d fp32 adds of fp32 products is within (d + 1)·2⁻²⁴·Σ|dO∘O| of the
+    exact sum."""
+    gen = torch.Generator().manual_seed(d)
+    dout, out = (torch.randn((2, 3, 17, d), generator=gen).to(dtype) for _ in range(2))
+    twin = ta.masked_attention_delta_plain(dout, out)
+    assert twin.shape == (2, 3, 17) and twin.dtype == torch.float32
+    prods = dout.double() * out.double()
+    exact, bound = prods.sum(-1), (d + 1) * 2.0 ** -24 * prods.abs().sum(-1)
+    assert ((twin.double() - exact).abs() <= bound).all()
+    assert ((twin.double() - (dout.float() * out.float()).sum(-1).double()).abs() <= 2 * bound).all()
+
+
+@pytest.mark.parametrize("d", [8, 40, 64, 72, 128])
+def test_delta_plain_twin_adds_every_product_once(d):
+    """Integer products sum exactly in fp32: the twin's lanes and chunks
+    cover each of the d products once, padded columns adding nothing."""
+    dout = torch.ones((1, 2, 3, d), dtype=torch.bfloat16)
+    out = torch.arange(d, dtype=torch.float32).expand(1, 2, 3, d).to(torch.bfloat16)
+    twin = ta.masked_attention_delta_plain(dout, out)
+    assert torch.equal(twin, torch.full((1, 2, 3), float(d * (d - 1) // 2)))

@@ -12,10 +12,13 @@ exp2 against exp) and 2e-2 (bf16 output rounding), each bf16 layout of the
 forward on its own as well; the forward's log-sum-exp 1e-3 in log2 units
 (fp32 sums in another order), +inf and a NaN output (0 / 0, as the plain
 version) on a batch row with no valid key; backward max |err| /
-max |ref| of dq, dk, dv, the same two, both through autograd and for each
-backward kernel alone against ``masked_attention_bwd_plain`` fed the
-forward kernel's log-sum-exp; padded keys get dk = dv = 0 exactly; MAS
-indices equal (fp32 adds and maxes in one order).
+max |ref| of dq, dk, dv, the same two, both through autograd and for the
+backward's one launch alone against ``masked_attention_bwd_plain`` fed the
+forward kernel's log-sum-exp and ``masked_attention_delta_plain``'s delta
+(bf16 dq is summed by fp32 reduce-adds in an order that changes from run
+to run, which moves it far less than its bf16 rounding); padded keys get
+dk = dv = 0 exactly; MAS indices equal (fp32 adds and maxes in one
+order).
 """
 
 import pytest
@@ -94,10 +97,10 @@ def test_kernel_backward_matches_plain_on_card(gen, shape, dtype):
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt).requires_grad_() for _ in range(3))
     dout = torch.randn(shape, generator=gen, device="cuda").to(dt)
     valid = _valid(b, t, gen)
-    before = ta.masked_attention_bwd_dq_count.launches
+    before = ta.masked_attention_bwd_count.launches
     grads = torch.autograd.grad(ta.masked_self_attention(q, k, v, valid), (q, k, v), dout)
     torch.cuda.synchronize()
-    assert ta.masked_attention_bwd_dq_count.launches == before + 1
+    assert ta.masked_attention_bwd_count.launches == before + 1
     ref_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
     ref = torch.autograd.grad(ta.masked_self_attention_plain(*ref_in, valid), ref_in, dout.float())
     for g, r in zip(grads, ref):
@@ -105,14 +108,13 @@ def test_kernel_backward_matches_plain_on_card(gen, shape, dtype):
 
 
 def _bwd_case(gen, shape, dtype):
-    """Ragged keys (row 0 one valid key), the forward kernel's lse, delta."""
+    """Ragged keys (row 0 one valid key), the forward kernel's out and lse."""
     b, h, t, d = shape
     valid = _valid(b, t, gen)
     valid_u8 = valid.to(torch.uint8)
     q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
     out, lse = ta._launch_fwd(q, k, v, valid_u8, with_lse=True)
-    delta = (dout.float() * out.float()).sum(-1)
-    return (q, k, v, dout, lse, delta, valid_u8), valid
+    return (q, k, v, dout, lse, out, valid_u8), valid
 
 
 def _rel(got, ref):
@@ -124,12 +126,14 @@ def _rel(got, ref):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_each_backward_kernel_matches_its_plain_contract(gen, shape, dtype):
     args, valid = _bwd_case(gen, shape, getattr(torch, dtype))
-    q, k, v, dout, lse, delta, _ = args
-    dk, dv = ta.masked_attention_bwd_dkv(*args)
-    dq = ta.masked_attention_bwd_dq(*args)
+    q, k, v, dout, lse, out, _ = args
+    dq, dk, dv = ta.masked_attention_bwd_dkv(*args)
+    dq_alone = ta.masked_attention_bwd_dq(*args)
     torch.cuda.synchronize()
     assert (lse - ta.masked_attention_lse_plain(q, k, valid)).abs().max().item() <= 1e-3
+    delta = ta.masked_attention_delta_plain(dout, out)
     ref = ta.masked_attention_bwd_plain(q.float(), k.float(), v.float(), dout.float(), lse, delta, valid)
+    assert _rel(dq_alone, ref[0]) <= TOL[dtype]
     for got, r in zip((dq, dk, dv), ref):
         assert got.shape == q.shape and got.dtype == q.dtype
         assert _rel(got, r) <= TOL[dtype]
@@ -139,7 +143,7 @@ def test_each_backward_kernel_matches_its_plain_contract(gen, shape, dtype):
 @pytest.mark.parametrize("shape", [(4, 5, 333, 64), (3, 6, 200, 48)])
 def test_padded_keys_get_exactly_zero_dk_dv(gen, shape):
     args, valid = _bwd_case(gen, shape, torch.bfloat16)
-    dk, dv = ta.masked_attention_bwd_dkv(*args)
+    _, dk, dv = ta.masked_attention_bwd_dkv(*args)
     torch.cuda.synchronize()
     padded = (valid == 0)[:, None, :, None].expand(dk.shape)
     assert padded.any()
