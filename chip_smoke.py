@@ -162,7 +162,12 @@ JSON line:
               at the encoder's training shape (62,6,224,48), v20's
               (62,6,512,64) and the tp=2 halves (62,3,512,64), (62,3,224,48),
               each checked against its plain version, beside SDPA; then
-              the same at F5-TTS's DiT shapes (DIT_SIGNATURE_SHAPES)
+              the same at F5-TTS's DiT shapes (DIT_SIGNATURE_SHAPES); then
+              chunked_attention: K1 (with and without lse) and K1b
+              chunk-causal at CosyVoice 2's estimator shapes
+              (COSY_SIGNATURE_SHAPES, chunk 50), bf16 and fp32, against
+              the plain versions, and each timed at chunk 50 and chunk 0
+              beside its bound over the kept (query, key) pairs
  39. adamw    after phase 3: the multi-tensor AdamW (ops/adamw.py) against
               the plain loop at MatchaConfig()'s 387 parameters, 4 updates
               (clipped, not clipped, a NaN skipped, again) for the recipe,
@@ -312,18 +317,19 @@ def ragged_valid(b, t, gen, empty_row=False):
     return (torch.arange(t, device="cuda")[None] < lengths[:, None]).float(), lengths
 
 
-def check_k1(shape, dtype, gen, at="list") -> float:
-    """K1 without lse at ``shape`` (ragged key lengths) through the wrapper
-    and, in bf16, each layout alone, against the plain version: max |err|."""
+def check_k1(shape, dtype, gen, at="list", chunk=0) -> float:
+    """K1 without lse at ``shape`` (ragged key lengths; ``chunk`` > 0
+    chunk-causal) through the wrapper and, in bf16, each layout alone,
+    against the plain version: max |err|."""
     from matcha_tpu_torch.ops import attention as att
 
     valid, lengths = ragged_valid(shape[0], shape[2], gen)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
-    ref = att.masked_self_attention_plain(q.float(), k.float(), v.float(), valid)
-    runs = {"wrapper": lambda: att.masked_attention_fwd(q, k, v, valid)}
+    ref = att.masked_self_attention_plain(q.float(), k.float(), v.float(), valid, chunk=chunk)
+    runs = {"wrapper": lambda: att.masked_attention_fwd(q, k, v, valid, chunk=chunk)}
     if dtype == torch.bfloat16:
         u8 = valid.to(torch.uint8)
-        runs.update({f"layout_{n}": (lambda n=n: att._launch_fwd(q, k, v, u8, False, layout=n)[0])
+        runs.update({f"layout_{n}": (lambda n=n: att._launch_fwd(q, k, v, u8, False, layout=n, chunk=chunk)[0])
                      for n in (1, 2)})
     errs = {}
     for name, run in runs.items():
@@ -334,27 +340,28 @@ def check_k1(shape, dtype, gen, at="list") -> float:
     err = max(errs.values())
     ok = err <= TOL[dtype]
     emit({"phase": "kernel_check", "kernel": "masked_attention_fwd", "shape": list(shape),
-          "dtype": str(dtype).split(".")[-1], "shapes_from": at, "key_lengths": lengths.tolist()[:8],
+          "dtype": str(dtype).split(".")[-1], "chunk": chunk, "shapes_from": at, "key_lengths": lengths.tolist()[:8],
           "max_abs_err": errs, "tol": TOL[dtype], "ok": ok})
-    check(ok, f"masked_attention_fwd disagrees with its plain version at {shape} {dtype}: {errs}")
+    check(ok, f"masked_attention_fwd disagrees with its plain version at {shape} {dtype} chunk {chunk}: {errs}")
     return err
 
 
-def check_k1_lse(shape, dtype, gen, at="list") -> tuple[float, float]:
-    """K1 with lse at ``shape``, each bf16 layout alone, against the plain
-    output and lse; with B > 1 one batch row has no valid key (+inf lse,
-    NaN output).  Returns (max |err| of the output, of the lse)."""
+def check_k1_lse(shape, dtype, gen, at="list", chunk=0) -> tuple[float, float]:
+    """K1 with lse at ``shape`` (``chunk`` > 0 chunk-causal), each bf16
+    layout alone, against the plain output and lse; with B > 1 one batch row
+    has no valid key (+inf lse, NaN output).  Returns (max |err| of the
+    output, of the lse)."""
     from matcha_tpu_torch.ops import attention as att
 
     valid, lengths = ragged_valid(shape[0], shape[2], gen, empty_row=shape[0] > 1)
     u8 = valid.to(torch.uint8)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
-    ref = att.masked_self_attention_plain(q.float(), k.float(), v.float(), valid)
-    ref_lse = att.masked_attention_lse_plain(q, k, valid)
+    ref = att.masked_self_attention_plain(q.float(), k.float(), v.float(), valid, chunk=chunk)
+    ref_lse = att.masked_attention_lse_plain(q, k, valid, chunk=chunk)
     finite, keep = torch.isfinite(ref_lse), ~torch.isnan(ref)
     worst, worst_lse = 0.0, 0.0
     for layout in ((1, 2) if dtype == torch.bfloat16 else (0,)):
-        out, lse = att._launch_fwd(q, k, v, u8, True, layout=layout)
+        out, lse = att._launch_fwd(q, k, v, u8, True, layout=layout, chunk=chunk)
         torch.cuda.synchronize()
         inf_same = bool(torch.equal(torch.isinf(lse), ~finite) and (lse[~finite] > 0).all())
         nan_same = bool(torch.equal(torch.isnan(out), ~keep))
@@ -362,11 +369,11 @@ def check_k1_lse(shape, dtype, gen, at="list") -> tuple[float, float]:
         err = (out.float()[keep] - ref[keep]).abs().max().item()
         ok = inf_same and nan_same and lse_err <= LSE_TOL and err <= TOL[dtype]
         emit({"phase": "kernel_check", "kernel": "masked_attention_fwd_lse", "shape": list(shape),
-              "dtype": str(dtype).split(".")[-1], "layout": layout, "shapes_from": at,
+              "dtype": str(dtype).split(".")[-1], "layout": layout, "chunk": chunk, "shapes_from": at,
               "key_lengths": lengths.tolist()[:4], "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
               "empty_row_lse_inf": inf_same, "empty_row_out_nan": nan_same,
               "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
-        check(ok, f"K1's lse or output disagrees at {shape} {dtype} layout {layout}: lse {lse_err}, "
+        check(ok, f"K1's lse or output disagrees at {shape} {dtype} layout {layout} chunk {chunk}: lse {lse_err}, "
                   f"out {err}, +inf rows {inf_same}, NaN rows {nan_same}")
         worst, worst_lse = max(worst, err), max(worst_lse, lse_err)
     return worst, worst_lse
@@ -835,7 +842,7 @@ def rel_err(got, ref) -> float:
     return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
 
-def check_bwd_alone(shape, dtype, gen, at="list") -> float:
+def check_bwd_alone(shape, dtype, gen, at="list", chunk=0) -> float:
     """The backward's launch alone at ``shape`` against
     ``masked_attention_bwd_plain``, fed the log-sum-exp the forward kernel
     wrote (itself held against ``masked_attention_lse_plain``) and delta by
@@ -847,8 +854,9 @@ def check_bwd_alone(shape, dtype, gen, at="list") -> float:
     land in an order that changes from run to run, so the two dq may differ
     by a bf16 rounding step, and dq is held to the same TOL as dk and dv:
     its max |err| / max |ref| is bf16 output rounding (4e-3), which an fp32
-    summation order moves by about 1e-7.  Returns the worst max |err| /
-    max |ref| of dq, dk, dv."""
+    summation order moves by about 1e-7.  ``chunk`` > 0: chunk-causal, the
+    forward's and the backward's.  Returns the worst max |err| / max |ref|
+    of dq, dk, dv."""
     from matcha_tpu_torch.ops import attention as att
 
     b, h, t, d = shape
@@ -860,22 +868,23 @@ def check_bwd_alone(shape, dtype, gen, at="list") -> float:
     valid_u8 = valid.to(torch.uint8)
     padded = (valid_u8 == 0)[:, None, :, None].expand(b, h, t, d)
     q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
-    out, lse = att._launch_fwd(q, k, v, valid_u8, with_lse=True)
+    out, lse = att._launch_fwd(q, k, v, valid_u8, with_lse=True, chunk=chunk)
     out = torch.nan_to_num(out, nan=0.0)
-    dq, dk, dv = att.masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8)
+    dq, dk, dv = att.masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8, chunk=chunk)
     torch.cuda.synchronize()
-    lse_ref = att.masked_attention_lse_plain(q, k, valid)
+    lse_ref = att.masked_attention_lse_plain(q, k, valid, chunk=chunk)
     finite = torch.isfinite(lse_ref)
     lse_err = (lse[finite] - lse_ref[finite]).abs().max().item()
     lse_err = lse_err if torch.equal(torch.isinf(lse), ~finite) else math.inf
     delta = att.masked_attention_delta_plain(dout, out)
-    ref = att.masked_attention_bwd_plain(q.float(), k.float(), v.float(), dout.float(), lse, delta, valid)
+    ref = att.masked_attention_bwd_plain(q.float(), k.float(), v.float(), dout.float(), lse, delta, valid,
+                                         chunk=chunk)
     errs = {f"d{n}": rel_err(g, r) for n, g, r in zip("qkv", (dq, dk, dv), ref)}
     pad_zero = bool((dk[padded] == 0).all() and (dv[padded] == 0).all())
     empty_zero = bool(b <= 2 or all((g[1] == 0).all() for g in (dq, dk, dv)))
     rerun = {}
     if dtype == torch.bfloat16:
-        dq2, dk2, dv2 = att.masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8)
+        dq2, dk2, dv2 = att.masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8, chunk=chunk)
         torch.cuda.synchronize()
         rerun = {"dk_dv_equal": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
                  "dq_rel_diff": rel_err(dq2, dq.float())}
@@ -883,10 +892,10 @@ def check_bwd_alone(shape, dtype, gen, at="list") -> float:
           and all(math.isfinite(e) and e <= TOL[dtype] for e in errs.values())
           and rerun.get("dk_dv_equal", True) and rerun.get("dq_rel_diff", 0.0) <= TOL[dtype])
     emit({"phase": "kernel_check", "kernel": "masked_attention_bwd_alone", "shape": list(shape),
-          "dtype": str(dtype).split(".")[-1], "shapes_from": at, "key_lengths": lengths.tolist()[:4],
+          "dtype": str(dtype).split(".")[-1], "chunk": chunk, "shapes_from": at, "key_lengths": lengths.tolist()[:4],
           "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL, "rel_err": errs, "tol": TOL[dtype],
           "padded_keys_zero": pad_zero, "empty_row_zero": empty_zero, "rerun": rerun, "ok": ok})
-    check(ok, f"the backward disagrees with masked_attention_bwd_plain at {shape} {dtype}: "
+    check(ok, f"the backward disagrees with masked_attention_bwd_plain at {shape} {dtype} chunk {chunk}: "
               f"lse {lse_err}, {errs}, padded keys zero: {pad_zero}, empty row zero: {empty_zero}, "
               f"rerun {rerun}")
     return max(errs.values())
@@ -1319,7 +1328,7 @@ def train_counters():
             "mas": mas.mas_count}
 
 
-# every signature (shapes, dtype, lse) at which a main path launched each
+# every signature (shapes, dtype, lse, chunk) at which a main path launched each
 # kernel, gathered by read_counts and checked by phase_path_signatures
 LAUNCHED: dict[str, set] = {}
 
@@ -2782,6 +2791,49 @@ NEW_SIGNATURE_SHAPES = [(62, 6, 224, 48), (62, 6, 512, 64), (62, 3, 512, 64), (6
 DIT_SIGNATURE_SHAPES = [(13, 16, 2816, 64), (13, 16, 2848, 64), (52, 16, 736, 64), (50, 16, 768, 64)]
 
 
+# CosyVoice 2's estimator (8 heads of 64, chunk 50 on a streaming step): the
+# cosy-train cell's longest bucket (20 × 1600), the sizing's 21 × 1504 and
+# its median bucket (71 × 448)
+COSY_SIGNATURE_SHAPES = [(20, 8, 1600, 64), (21, 8, 1504, 64), (71, 8, 448, 64)]
+COSY_CHUNK = 50
+
+
+def phase_chunked_attention() -> dict:
+    """K1 (with and without lse) and K1b chunk-causal (chunk 50) at the
+    flow estimator's shapes against the plain versions, then each timed at
+    chunk 50 and at chunk 0 (all keys), beside its bound: the chunked
+    bound counts only the (query, key) pairs the mask keeps."""
+    from matcha_tpu_torch.ops import attention as att
+    from matcha_tpu_torch.utils.flops import kept_pairs
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    timed = {}
+    for shape in COSY_SIGNATURE_SHAPES:
+        b, h, t, d = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            check_k1(shape, dtype, gen, chunk=COSY_CHUNK)
+            check_k1_lse(shape, dtype, gen, chunk=COSY_CHUNK)
+            check_bwd_alone(shape, dtype, gen, chunk=COSY_CHUNK)
+        q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(4))
+        u8 = torch.ones((b, t), device="cuda", dtype=torch.uint8)
+        entry = {}
+        for chunk in (COSY_CHUNK, 0):
+            keys = kept_pairs(t, chunk) / t  # the mean keys a query sees
+            fwd = cuda_ms(lambda: att._launch_fwd(q, k, v, u8, True, chunk=chunk))
+            out, lse = att._launch_fwd(q, k, v, u8, True, chunk=chunk)
+            bwd = cuda_ms(lambda: att.masked_attention_bwd_dkv(q, k, v, dout, lse, out, u8, chunk=chunk))
+            fb = attention_bound_ms(b, h, t, d, torch.bfloat16, keys, with_lse=True)[0]
+            bb = attention_bwd_bound_ms(b, h, t, d, torch.bfloat16, keys, products=5, tensors=8)[0]
+            entry[f"chunk_{chunk}"] = {"fwd_lse_ms": fwd, "fwd_bound_ms": fb, "fwd_share": fb / fwd,
+                                       "bwd_ms": bwd, "bwd_bound_ms": bb, "bwd_share": bb / bwd,
+                                       "kept_pair_share": kept_pairs(t, chunk) / (t * t)}
+        timed[shape] = entry
+        emit({"phase": "kernel_time", "kernel": "masked_attention (chunk-causal)", "shape": list(shape),
+              "dtype": "bfloat16", **entry})
+        torch.cuda.empty_cache()
+    return timed
+
+
 def phase_new_signatures_time() -> dict:
     """K1 (with and without lse) and K1b at the encoder's training shape and
     at the new paths' signatures (v20 widths, and their tp=2 halves),
@@ -2847,17 +2899,18 @@ def phase_path_signatures() -> dict:
     values."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {"masked_attention_fwd": 0.0, "lse": 0.0, "masked_attention_bwd": 0.0}
-    for shape, dtype, with_lse in sorted(LAUNCHED["masked_attention_fwd"]):
+    for shape, dtype, with_lse, chunk in sorted(LAUNCHED["masked_attention_fwd"]):
         if with_lse:
-            err, lse_err = check_k1_lse(shape, getattr(torch, dtype), gen, at="path")
+            err, lse_err = check_k1_lse(shape, getattr(torch, dtype), gen, at="path", chunk=chunk)
             worst["lse"] = max(worst["lse"], lse_err)
         else:
-            err = check_k1(shape, getattr(torch, dtype), gen, at="path")
+            err = check_k1(shape, getattr(torch, dtype), gen, at="path", chunk=chunk)
         worst["masked_attention_fwd"] = max(worst["masked_attention_fwd"], err)
     bwd = sorted(LAUNCHED["masked_attention_bwd"])
-    for shape, dtype in bwd:
+    for shape, dtype, chunk in bwd:
         worst["masked_attention_bwd"] = max(worst["masked_attention_bwd"],
-                                            check_bwd_alone(shape, getattr(torch, dtype), gen, at="path"))
+                                            check_bwd_alone(shape, getattr(torch, dtype), gen, at="path",
+                                                            chunk=chunk))
     for shape in sorted(LAUNCHED["mas"]):
         for kind in ("ragged", "ties"):
             check_mas(shape, gen, kind, at="path")
@@ -3656,6 +3709,7 @@ def main() -> int:
     bwd_alone = phase_bwd_kernels()
     new_sigs = phase_new_signatures_time()
     phase_dit_signatures_time()
+    phase_chunked_attention()
     phase_kernel_attributes()
     adamw = phase_adamw()
     dit_fused = phase_dit_fused()

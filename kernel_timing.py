@@ -8,7 +8,7 @@ file), builds its kernels, and times, with CUDA events after a spin kernel
 
 - the masked-attention forward (K1, bf16, all keys valid) at the B=1
   request's shapes, the B=16 batch's and, writing its log-sum-exp as the
-  training step does, the training step's, beside SDPA's forward on the
+  training step does, the training steps' (the DiT's too), beside SDPA's forward on the
   same inputs; where the checkout's wrapper takes a ``layout``, each bf16
   layout on its own as well; the encoder's training shape (62,6,224,48),
   the v20 decoder's (62,6,512,64) and their tensor-parallel halves
@@ -43,6 +43,7 @@ FWD_SHAPES = {"b1": [(1, 6, 256, 48), (1, 5, 512, 64), (1, 5, 256, 64)],
               "train": [(62, 5, 512, 64), (29, 5, 1088, 64)] + NEW_SIGNATURES,
               "no_lse": NEW_SIGNATURES}
 DIT_SHAPES = [(13, 16, 2816, 64), (13, 16, 2848, 64), (52, 16, 736, 64), (50, 16, 768, 64)]
+FWD_SHAPES["train"] += DIT_SHAPES
 BWD_SHAPES = [(62, 5, 512, 64), (29, 5, 1088, 64)] + NEW_SIGNATURES + DIT_SHAPES
 MAS_SHAPES = [(62, 224, 1024), (29, 448, 2176)]
 

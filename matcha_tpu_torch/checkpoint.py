@@ -30,7 +30,7 @@ from pathlib import Path
 
 import numpy as np
 
-from matcha_tpu_torch.models.config import DiTConfig, MatchaConfig, model_config_from_dict
+from matcha_tpu_torch.models.config import CosyFlowConfig, DiTConfig, MatchaConfig, model_config_from_dict
 from matcha_tpu_torch.vocoder.vocos import VocosConfig
 from matcha_tpu_torch.weights import params_from_jax, vocos_params_from_jax
 
@@ -77,7 +77,7 @@ def flatten_keystr(tree: Mapping, prefix: tuple = ()) -> dict[str, object]:
     return flat
 
 
-def load_checkpoint(path: str | Path) -> tuple[dict, MatchaConfig | DiTConfig]:
+def load_checkpoint(path: str | Path) -> tuple[dict, MatchaConfig | DiTConfig | CosyFlowConfig]:
     """Checkpoint directory → (nested numpy tree, config of the model it holds)."""
     path = Path(path)
     cfg = model_config_from_dict(json.loads((path / "config.json").read_text()))
@@ -133,8 +133,9 @@ def load_synthesizer(checkpoint_path: str, vocoder_path: str | None = None,
     from matcha_tpu_torch.inference import MatchaSynthesizer
 
     tree, cfg = load_checkpoint(checkpoint_path)
-    if isinstance(cfg, DiTConfig):
-        raise ValueError(f"{checkpoint_path} holds F5-TTS's DiT, which the port trains but does not serve")
+    if not isinstance(cfg, MatchaConfig):
+        raise ValueError(f"{checkpoint_path} holds a {type(cfg).__name__} model, which the port trains but "
+                         "does not serve")
     params = params_from_jax(tree["params"], cfg)
     vocos_params, vocos_cfg = None, VocosConfig()
     if vocoder_path:

@@ -9,9 +9,10 @@ config files (reference behaviour: matcha/inference.py:186-197).
 
 ``DiTConfig`` is the port's second model, F5-TTS's DiT trained by flow
 matching (``models/dit.py``), which the JAX package does not have.  Its
-``config.json`` carries ``"arch": "f5tts_dit"``; ``model_config_from_dict``
-reads either kind.  Each config's ``model_class()`` names the module it
-builds.
+``config.json`` carries ``"arch": "f5tts_dit"``.  ``CosyFlowConfig`` is the
+third, CosyVoice 2's streaming flow-matching stage (``models/cosyflow.py``),
+with ``"arch": "cosyvoice2_flow"``.  ``model_config_from_dict`` reads any
+kind.  Each config's ``model_class()`` names the module it builds.
 """
 
 from __future__ import annotations
@@ -232,12 +233,88 @@ class DiTConfig:
         return cls(**d)
 
 
-def model_config_from_dict(d: dict[str, Any]) -> "MatchaConfig | DiTConfig":
-    """A ``config.json`` of either model: the DiT's names its ``arch``."""
-    return DiTConfig.from_dict(d) if d.get("arch") == DIT_ARCH else MatchaConfig.from_dict(d)
+COSY_ARCH = "cosyvoice2_flow"
+
+
+@dataclass(frozen=True)
+class CosyFlowConfig:
+    """CosyVoice 2's flow-matching stage (arXiv:2412.10117; FunAudioLLM/
+    CosyVoice ``examples/libritts/cosyvoice2/conf/cosyvoice2.yaml``, its
+    ``flow:`` block, ``CausalMaskedDiffWithXvec``): speech tokens at 25 Hz →
+    80-band mels at 50 Hz, conditioned on an x-vector and a mel prompt.
+    Defaults are the published widths.  ``n_xvectors`` rows of a fixed,
+    seeded x-vector table stand in for CAM++ embeddings
+    (``models/cosyflow.py``)."""
+
+    arch: str = COSY_ARCH
+    n_feats: int = 80              # output_size: 80 mel bands
+    vocab_size: int = 6561         # speech tokens
+    token_mel_ratio: int = 2       # 25 Hz tokens → 50 Hz frames
+    spk_embed_dim: int = 192       # the x-vector
+    n_xvectors: int = 16           # rows of the stand-in x-vector table
+    # encoder (UpsampleConformerEncoder)
+    encoder_dim: int = 512         # input_size and output_size
+    encoder_heads: int = 8
+    encoder_ffn: int = 2048        # linear_units
+    encoder_layers: int = 6        # num_blocks, before the upsampling
+    up_layers: int = 4             # after it
+    encoder_dropout: float = 0.1   # dropout, positional and attention dropout
+    pre_lookahead: int = 3         # tokens of right context
+    chunk: int = 25                # static_chunk_size (tokens); ×token_mel_ratio after the upsampling
+    # estimator (CausalConditionalDecoder)
+    estimator_channels: tuple[int, ...] = (256,)
+    estimator_blocks: int = 4      # n_blocks
+    estimator_mid: int = 12        # num_mid_blocks
+    estimator_heads: int = 8
+    estimator_head_dim: int = 64
+    estimator_dropout: float = 0.0
+    # CFM (CausalConditionalCFM); flow.py's own draws are models/cosyflow.py's constants
+    sigma_min: float = 1e-6
+    cfg_rate: float = 0.2          # training_cfg_rate: rows with μ, x-vector and prompt zeroed
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def estimator_chunk(self) -> int:
+        """The chunk (frames) after the upsampling and in the estimator."""
+        return self.chunk * self.token_mel_ratio
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def model_class(self):
+        """The module this config builds: ``models/cosyflow.CosyFlow``."""
+        from matcha_tpu_torch.models.cosyflow import CosyFlow  # the models import this module
+
+        return CosyFlow
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "CosyFlowConfig":
+        d = dict(d)
+        if d.get("arch", COSY_ARCH) != COSY_ARCH:
+            raise ValueError(f"not a CosyVoice 2 flow config: arch {d['arch']!r}")
+        if "estimator_channels" in d:
+            d["estimator_channels"] = tuple(d["estimator_channels"])
+        return cls(**d)
+
+
+MODEL_CONFIGS = {DIT_ARCH: DiTConfig, COSY_ARCH: CosyFlowConfig}
+
+
+def model_config_from_dict(d: dict[str, Any]) -> "MatchaConfig | DiTConfig | CosyFlowConfig":
+    """A ``config.json`` of any model: the DiT's and the flow stage's name their ``arch``."""
+    return MODEL_CONFIGS.get(d.get("arch"), MatchaConfig).from_dict(d)
 
 
 def tiny_dit_config() -> DiTConfig:
     """The DiT at tiny widths, fp32, for tests / CI: same topology."""
     return DiTConfig(n_feats=8, dim=64, depth=2, heads=4, dim_head=16, text_dim=32, conv_layers=2,
                      compute_dtype="float32")
+
+
+def tiny_cosy_config() -> CosyFlowConfig:
+    """The flow stage at tiny widths, fp32, for tests / CI: same topology,
+    chunks of 4 tokens (8 frames)."""
+    return CosyFlowConfig(n_feats=8, vocab_size=50, spk_embed_dim=12, n_xvectors=4, encoder_dim=32,
+                          encoder_heads=4, encoder_ffn=64, encoder_layers=2, up_layers=2, chunk=4,
+                          estimator_channels=(32,), estimator_blocks=1, estimator_mid=2, estimator_heads=2,
+                          estimator_head_dim=16, compute_dtype="float32")

@@ -41,6 +41,17 @@ its log-sum-exp) a second time.  The block also runs with the very
 parameter tensors of its forward, which ``torch.func.functional_call``
 no longer holds in place when the backward recomputes.
 
+The causal U-Net (``Decoder(..., causal=True)``; CosyVoice 2's
+``CausalConditionalDecoder``, cosyvoice/flow/decoder.py, which its flow
+stage ``models/cosyflow.py`` trains) is this U-Net with ``CausalBlock1D``
+(a conv padded 2 frames on the left → LayerNorm over the channels → Mish)
+in place of ``Block1D``, ``CausalResnetBlock1D`` in place of
+``ResnetBlock1D``, and each stage's last conv a ``CausalConv1d``; its
+``DecoderConfig.act_fn="gelu"`` gives the transformer blocks an exact-GELU
+FFN (diffusers' ``GELU``: ``proj`` then GELU) in place of SnakeBeta.  Its
+attention takes a ``chunk`` (``ops/attention.py``): > 0 makes every
+transformer block chunk-causal.
+
 ``DecoderConfig.bf16_norm_stats``: the LayerNorms and GroupNorms take
 their statistics in the dtype they compute in (``models/layers.py``); the
 GroupNorms compute in fp32 under ``fp32_residual``, so with the default
@@ -144,16 +155,33 @@ class SnakeBeta(nn.Module):
         return h + inv_beta * torch.sin(h * alpha).square()
 
 
-class FeedForward(nn.Module):
-    """SnakeBeta FFN, mult 4 (reference transformer.py FeedForward)."""
+class GELU(nn.Module):
+    """proj → exact GELU (diffusers ``GELU``, ``approximate="none"``)."""
 
-    def __init__(self, dim, mult=4, p_dropout=0.0, dtype=torch.float32):
+    def __init__(self, dim, inner, dtype=torch.float32):
         super().__init__()
+        self.proj = Linear(dim, inner, dtype=dtype)
+
+    def forward(self, x):
+        return F.gelu(self.proj(x))
+
+
+ACTIVATIONS = {"snakebeta": SnakeBeta, "gelu": GELU}
+
+
+class FeedForward(nn.Module):
+    """SnakeBeta (or, ``act_fn="gelu"``, GELU) FFN, mult 4 (reference
+    transformer.py FeedForward)."""
+
+    def __init__(self, dim, mult=4, p_dropout=0.0, dtype=torch.float32, act_fn="snakebeta"):
+        super().__init__()
+        if act_fn not in ACTIVATIONS:
+            raise ValueError(f"decoder act_fn {act_fn!r}: one of {tuple(ACTIVATIONS)}")
         self.p_dropout = p_dropout
         self.tp = None  # set by parallel.sharding: the hidden channels are this rank's block
         # index 1 holds the reference's Dropout; it has no weights
         self.net = nn.ModuleList([
-            SnakeBeta(dim, dim * mult, dtype), nn.Identity(), Linear(dim * mult, dim, dtype=dtype)
+            ACTIVATIONS[act_fn](dim, dim * mult, dtype), nn.Identity(), Linear(dim * mult, dim, dtype=dtype)
         ])
 
     def forward(self, x, gen=None):
@@ -181,38 +209,39 @@ class Attention(nn.Module):
         # index 1 holds the reference's Dropout; it has no weights
         self.to_out = nn.ModuleList([Linear(inner, dim, dtype=dtype), nn.Identity()])
 
-    def forward(self, x, mask, gen=None):
+    def forward(self, x, mask, gen=None, chunk=0):
         if self.tp is not None:
             x = self.tp.copy(x)
         out = multi_head(self.to_q(x), self.to_k(x), self.to_v(x), mask, self.num_heads,
-                         self.head_dim, self.attn_backend)
+                         self.head_dim, self.attn_backend, chunk)
         return dropout(self.to_out[0](out), self.p_dropout, gen)
 
 
-def multi_head(q, k, v, mask, num_heads, head_dim, backend):
-    """(B, T, H·D) projections → masked self-attention per head → (B, T, H·D)."""
+def multi_head(q, k, v, mask, num_heads, head_dim, backend, chunk=0):
+    """(B, T, H·D) projections → masked (``chunk`` > 0: chunk-causal)
+    self-attention per head → (B, T, H·D)."""
     b, t, _ = q.shape
 
     def split(y):
         return y.reshape(b, t, num_heads, head_dim).transpose(1, 2).contiguous()
 
-    out = masked_self_attention(split(q), split(k), split(v), mask, backend=backend)
+    out = masked_self_attention(split(q), split(k), split(v), mask, backend=backend, chunk=chunk)
     return out.transpose(1, 2).reshape(b, t, num_heads * head_dim)
 
 
 class DecoderTransformerBlock(nn.Module):
-    """Pre-norm block: LN → attention → LN → SnakeBeta FFN, residual both."""
+    """Pre-norm block: LN → attention → LN → SnakeBeta (or GELU) FFN, residual both."""
 
     def __init__(self, dim, num_heads, head_dim, p_dropout=0.0, dtype=torch.float32,
-                 attn_backend="auto", f32_stats=True):
+                 attn_backend="auto", f32_stats=True, act_fn="snakebeta"):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5, dtype=dtype, f32_stats=f32_stats)
         self.attn1 = Attention(dim, num_heads, head_dim, p_dropout, dtype, attn_backend)
         self.norm3 = LayerNorm(dim, eps=1e-5, dtype=dtype, f32_stats=f32_stats)
-        self.ff = FeedForward(dim, p_dropout=p_dropout, dtype=dtype)
+        self.ff = FeedForward(dim, p_dropout=p_dropout, dtype=dtype, act_fn=act_fn)
 
-    def forward(self, x, mask, gen=None):
-        x = x + self.attn1(self.norm1(x), mask, gen)
+    def forward(self, x, mask, gen=None, chunk=0):
+        x = x + self.attn1(self.norm1(x), mask, gen, chunk)
         return x + self.ff(self.norm3(x), gen)
 
 
@@ -278,13 +307,13 @@ class ConformerBlock(nn.Module):
         return self.final_norm(x)
 
 
-def remat_call(module: nn.Module, *args, gen: torch.Generator | None = None):
-    """``module(*args[, gen])`` under ``torch.utils.checkpoint`` with its
-    dropout masks replayed in the recompute (see the module doc)."""
+def remat_call(module: nn.Module, *args, gen: torch.Generator | None = None, **kwargs):
+    """``module(*args[, gen], **kwargs)`` under ``torch.utils.checkpoint``
+    with its dropout masks replayed in the recompute (see the module doc)."""
     tensors = {**dict(module.named_parameters()), **dict(module.named_buffers())}
     if gen is None:
         def run(*a):
-            return functional_call(module, tensors, a)
+            return functional_call(module, tensors, a, kwargs)
 
         return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
     snapshot = gen.get_state()
@@ -293,7 +322,7 @@ def remat_call(module: nn.Module, *args, gen: torch.Generator | None = None):
     def run(*a):
         replay = torch.Generator(device=gen.device)
         replay.set_state(snapshot)
-        out = functional_call(module, tensors, (*a, replay))
+        out = functional_call(module, tensors, (*a, replay), kwargs)
         if not after:  # the forward's end state; the recompute's is the same
             after.append(replay.get_state())
         return out
@@ -301,6 +330,48 @@ def remat_call(module: nn.Module, *args, gen: torch.Generator | None = None):
     out = checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
     gen.set_state(after[0])
     return out
+
+
+class CausalConv1d(Conv1d):
+    """Conv over time padded ``kernel_size − 1`` frames on the left: frame t
+    sees frames up to t (cosyvoice/flow/decoder.py ``CausalConv1d``)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, *, dtype=torch.float32):
+        super().__init__(in_ch, out_ch, kernel_size, padding=0, dtype=dtype)
+
+    def forward(self, x):
+        return super().forward(F.pad(x, (0, 0, self.kernel_size[0] - 1, 0)))
+
+
+class CausalBlock1D(nn.Module):
+    """Masked causal conv3 → LayerNorm over the channels → Mish, masked
+    (cosyvoice/flow/decoder.py ``CausalBlock1D``; index 1 holds its
+    ``Transpose``).  Under ``f32_carry`` the norm and everything after it
+    are fp32; only the conv runs in the compute dtype."""
+
+    def __init__(self, dim_in, dim_out, dtype=torch.float32, f32_carry=False, f32_stats=True):
+        super().__init__()
+        self.dtype = dtype
+        norm_dtype = torch.float32 if f32_carry else dtype
+        self.block = nn.ModuleList([
+            CausalConv1d(dim_in, dim_out, 3, dtype=dtype), nn.Identity(),
+            LayerNorm(dim_out, eps=1e-5, dtype=norm_dtype, f32_stats=f32_stats),
+        ])
+
+    def forward(self, x, mask, masked_norm=False):
+        m = mask[..., None].to(self.dtype)
+        return F.mish(self.block[2](self.block[0](x * m))) * m
+
+
+class CausalResnetBlock1D(ResnetBlock1D):
+    """``ResnetBlock1D`` over two ``CausalBlock1D``s."""
+
+    def __init__(self, dim_in, dim_out, time_emb_dim, dtype=torch.float32, f32_carry=False,
+                 f32_stats=True):
+        super().__init__(dim_in, dim_out, time_emb_dim, dtype=dtype, f32_carry=f32_carry,
+                         f32_stats=f32_stats)
+        self.block1 = CausalBlock1D(dim_in, dim_out, dtype, f32_carry, f32_stats)
+        self.block2 = CausalBlock1D(dim_out, dim_out, dtype, f32_carry, f32_stats)
 
 
 class Downsample1D(nn.Module):
@@ -329,10 +400,12 @@ class Decoder(nn.Module):
     """U-Net velocity estimator v(x, t | mu); (B, T, n_feats) in and out."""
 
     def __init__(self, cfg: DecoderConfig, in_channels: int, out_channels: int,
-                 dtype=torch.float32, attn_backend="auto"):
+                 dtype=torch.float32, attn_backend="auto", causal: bool = False):
         super().__init__()
         if cfg.block_type not in ("transformer", "conformer"):
             raise ValueError(f"decoder block_type {cfg.block_type!r}: 'transformer' or 'conformer'")
+        if causal and cfg.block_type != "transformer":
+            raise ValueError("the causal U-Net has transformer blocks only")
         self.cfg = cfg
         self.dtype = dtype
         self.in_channels = in_channels
@@ -342,12 +415,17 @@ class Decoder(nn.Module):
         ted = ch[0] * 4
         f32_stats = not cfg.bf16_norm_stats
         kw = dict(dtype=dtype, f32_carry=self.f32_carry, f32_stats=f32_stats)
+        act = {} if cfg.block_type == "conformer" else {"act_fn": cfg.act_fn}
         block_cls = ConformerBlock if cfg.block_type == "conformer" else DecoderTransformerBlock
+        resnet_cls = CausalResnetBlock1D if causal else ResnetBlock1D
+
+        def last_conv(c):
+            return CausalConv1d(c, c, 3, dtype=dtype) if causal else Conv1d(c, c, 3, dtype=dtype)
 
         def blocks(dim):
             return nn.ModuleList(
                 block_cls(dim, cfg.num_heads, cfg.attention_head_dim, cfg.dropout, dtype,
-                          attn_backend, f32_stats)
+                          attn_backend, f32_stats, **act)
                 for _ in range(cfg.n_blocks)
             )
 
@@ -357,12 +435,12 @@ class Decoder(nn.Module):
             dim_in = in_channels if i == 0 else ch[i - 1]
             last = i == len(ch) - 1
             self.down_blocks.append(nn.ModuleList([
-                ResnetBlock1D(dim_in, c, ted, **kw),
+                resnet_cls(dim_in, c, ted, **kw),
                 blocks(c),
-                Conv1d(c, c, 3, dtype=dtype) if last else Downsample1D(c, dtype),
+                last_conv(c) if last else Downsample1D(c, dtype),
             ]))
         self.mid_blocks = nn.ModuleList(
-            nn.ModuleList([ResnetBlock1D(ch[-1], ch[-1], ted, **kw), blocks(ch[-1])])
+            nn.ModuleList([resnet_cls(ch[-1], ch[-1], ted, **kw), blocks(ch[-1])])
             for _ in range(cfg.num_mid_blocks)
         )
         up_ch = tuple(ch[::-1]) + (ch[0],)
@@ -371,18 +449,19 @@ class Decoder(nn.Module):
             out_c = up_ch[i + 1]
             last = i == len(up_ch) - 2
             self.up_blocks.append(nn.ModuleList([
-                ResnetBlock1D(2 * up_ch[i], out_c, ted, **kw),
+                resnet_cls(2 * up_ch[i], out_c, ted, **kw),
                 blocks(out_c),
-                Conv1d(out_c, out_c, 3, dtype=dtype) if last else Upsample1D(out_c, dtype),
+                last_conv(out_c) if last else Upsample1D(out_c, dtype),
             ]))
-        self.final_block = Block1D(up_ch[-1], up_ch[-1], **kw)
+        self.final_block = (CausalBlock1D if causal else Block1D)(up_ch[-1], up_ch[-1], **kw)
         # fp32 island: the velocity feeds fp32 ODE math (true fp32 matmul)
         self.final_proj = Conv1d(up_ch[-1], out_channels, 1, dtype=torch.float32)
 
-    def forward(self, x, mask, mu, t, masked_norm: bool = False, gen=None):
-        """x, mu: (B, T, n_feats); mask: (B, T) with T divisible by
-        2**num_downsamples; t: (B,) or scalar; ``gen`` turns dropout on.
-        Returns (B, T, n_feats)."""
+    def forward(self, x, mask, mu, t, masked_norm: bool = False, gen=None, chunk: int = 0):
+        """x: (B, T, n_feats); mu: (B, T, ·), the conditions concatenated
+        after x; mask: (B, T) with T divisible by 2**num_downsamples; t: (B,)
+        or scalar; ``gen`` turns dropout on; ``chunk`` > 0 makes attention
+        chunk-causal.  Returns (B, T, n_feats)."""
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device).expand(x.shape[0])
         t_emb = self.time_mlp(sinusoidal_time_embedding(t, self.in_channels))
         h = torch.cat([x, mu], dim=-1).to(self.carry)
@@ -395,8 +474,9 @@ class Decoder(nn.Module):
             return resnet(h, m, t_emb, masked_norm)
 
         def blocks_fwd(tblocks, h, m):
+            kw = {"chunk": chunk} if chunk else {}
             for blk in tblocks:
-                h = remat_call(blk, h, m, gen=gen) if remat else blk(h, m, gen)
+                h = remat_call(blk, h, m, gen=gen, **kw) if remat else blk(h, m, gen, **kw)
             return h
 
         skips, masks = [], [mask]

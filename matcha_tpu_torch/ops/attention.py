@@ -48,6 +48,14 @@ strides: a head dim that is not a multiple of 8 is zero-padded
 (``pad_head_dim``), the kernels get the true head dim's scale, and the
 output and gradients are sliced back.
 
+Chunk-causal attention.  ``chunk`` = c > 0, on every function here, also
+hides from query i every key j ≥ (⌊i/c⌋ + 1)·c, as a streaming model
+trains (CosyVoice 2's flow stage: ``models/cosyflow.py``); 0 (the default)
+hides padded keys alone.  The kernels end a query block's key loop at the
+last key its rows see and start a key block's query loop at the first
+query that sees it; ``attention_keep`` is the mask the plain versions
+apply.
+
 Dispatch.  A tensor on the CPU takes the plain version.  A CUDA tensor
 launches the kernel or raises; a build or launch failure is never hidden
 behind the plain version.  ``backend="einsum"`` asks for the plain version
@@ -71,7 +79,17 @@ masked_attention_fwd_count = LaunchCounter("masked_attention_fwd")
 masked_attention_bwd_count = LaunchCounter("masked_attention_bwd")
 
 
-def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None, scale=None):
+def attention_keep(key_valid, t: int, chunk: int = 0):
+    """(B, 1, T, T) bool: query i sees key j where j is valid and, with
+    ``chunk`` c > 0, j < (⌊i/c⌋ + 1)·c."""
+    keep = key_valid[:, None, None, :] > 0
+    if chunk:
+        i = torch.arange(t, device=key_valid.device)
+        keep = keep & (i[None, :] < (i[:, None] // chunk + 1) * chunk)
+    return keep
+
+
+def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None, scale=None, chunk: int = 0):
     """Einsum + boolean key mask: the counterpart of ``attention.py:134-139``.
 
     Logits are fp32 (bf16 products are exact in fp32), float64 for float64
@@ -79,35 +97,37 @@ def masked_self_attention_plain(q, k, v, key_valid, weights_dropout=None, scale=
     to v's dtype before the second product, as in the JAX einsum path.
     ``weights_dropout``, a function of the weights, is the training-mode
     attention-prob dropout of the text encoder (``text_encoder.py:157-174``).
-    ``scale`` defaults to 1/√D of q's head dim.
+    ``scale`` defaults to 1/√D of q's head dim; ``chunk`` > 0 is chunk-causal.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     wide = torch.promote_types(q.dtype, torch.float32)  # float64 in a float64 reference run
     logits = torch.einsum("bhqd,bhkd->bhqk", q.to(wide), k.to(wide)) * scale
-    logits = logits.masked_fill(~(key_valid[:, None, None, :] > 0), float("-inf"))
+    logits = logits.masked_fill(~attention_keep(key_valid, q.shape[2], chunk), float("-inf"))
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     if weights_dropout is not None:
         weights = weights_dropout(weights)
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
 
-def masked_attention_lse_plain(q, k, key_valid, scale=None):
+def masked_attention_lse_plain(q, k, key_valid, scale=None, chunk: int = 0):
     """The forward's fp32 log-sum-exp in log2 units, (B, H, T), as the K1
-    kernel writes it: log2 Σ_valid exp2(q·kᵀ·scale·log2e); +inf for a row
-    whose batch row has no valid key.  ``scale`` defaults to 1/√D."""
+    kernel writes it: log2 Σ_visible exp2(q·kᵀ·scale·log2e); +inf for a row
+    that sees no valid key.  ``scale`` defaults to 1/√D; ``chunk`` > 0 is
+    chunk-causal."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scale_log2 = LOG2E * scale
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale_log2
-    keep = key_valid[:, None, None, :] > 0
+    keep = attention_keep(key_valid, q.shape[2], chunk)
     lse = torch.logsumexp(s.masked_fill(~keep, float("-inf")) * math.log(2.0), dim=-1) / math.log(2.0)
     return torch.where(keep.any(dim=-1), lse, torch.full_like(lse, float("inf")))
 
 
-def masked_attention_bwd_plain(q, k, v, dout, lse, delta, key_valid, scale=None):
+def masked_attention_bwd_plain(q, k, v, dout, lse, delta, key_valid, scale=None, chunk: int = 0):
     """dq, dk, dv by the backward kernels' own formulas, in fp32:
-    P = exp2(q·kᵀ·scale·log2e − lse) with padded keys 0, dV = Pᵀ·dO,
+    P = exp2(q·kᵀ·scale·log2e − lse) with padded keys (and, with ``chunk``
+    > 0, keys past the query's chunk) 0, dV = Pᵀ·dO,
     dP = dO·vᵀ, dS = P∘(dP − delta), dQ = scale·dS·k, dK = scale·dSᵀ·q.
     ``lse``: (B, H, T) log2 units (``masked_attention_lse_plain``);
     ``delta``: (B, H, T) rowsum(dO∘O); ``scale`` defaults to 1/√D of q's
@@ -117,7 +137,7 @@ def masked_attention_bwd_plain(q, k, v, dout, lse, delta, key_valid, scale=None)
     qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
     p = torch.exp2(s * (scale * LOG2E) - lse.float()[..., None])
-    p = p.masked_fill(~(key_valid[:, None, None, :] > 0), 0.0)
+    p = p.masked_fill(~attention_keep(key_valid, q.shape[2], chunk), 0.0)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, df)
     dp = torch.einsum("bhqd,bhkd->bhqk", df, vf)
     ds = p * (dp - delta.float()[..., None])
@@ -183,60 +203,61 @@ def _kernel_operands(*tensors):
     return d, 1.0 / math.sqrt(d), ins
 
 
-def _launch_fwd(q, k, v, valid_u8, with_lse: bool, layout: int = 0):
+def _launch_fwd(q, k, v, valid_u8, with_lse: bool, layout: int = 0, chunk: int = 0):
     """K1 on CUDA tensors: (out, lse), lse empty unless ``with_lse``.
     ``layout`` (bf16): 0 by shape, 1 one warpgroup per block, 2 two
-    warpgroups splitting the keys."""
-    signature = (tuple(q.shape), str(q.dtype).split(".")[-1], with_lse)
+    warpgroups splitting the keys; ``chunk`` > 0: chunk-causal."""
+    signature = (tuple(q.shape), str(q.dtype).split(".")[-1], with_lse, chunk)
     d, scale, (q, k, v) = _kernel_operands(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:3] if with_lse else (0,), dtype=torch.float32, device=q.device)
-    kernels().masked_attention_fwd(q, k, v, valid_u8, out, lse, scale, layout)
+    kernels().masked_attention_fwd(q, k, v, valid_u8, out, lse, scale, layout, chunk)
     masked_attention_fwd_count.add(signature)
     return out[..., :d], lse
 
 
-def masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8):
+def masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8, chunk: int = 0):
     """The backward's one launch: (dq, dk, dv) of (B, H, T, D) CUDA tensors
-    in one dtype, from the forward's ``out`` and (B, H, T) fp32 ``lse`` and a
-    (B, T) uint8 key mask.  bf16: the delta pre-pass, the fused pass and the
-    dq post-pass; fp32: the pre-pass and the two reference kernels.  The
-    name (and the mask at position 6) is what ``benchmark/harness.py``
-    records as the backward's launch."""
-    signature = (tuple(q.shape), str(q.dtype).split(".")[-1])
+    in one dtype, from the forward's ``out`` and (B, H, T) fp32 ``lse``, a
+    (B, T) uint8 key mask and the forward's ``chunk``.  bf16: the delta
+    pre-pass, the fused pass and the dq post-pass; fp32: the pre-pass and
+    the two reference kernels.  The name (and the mask at position 6) is
+    what ``benchmark/harness.py`` records as the backward's launch."""
+    signature = (tuple(q.shape), str(q.dtype).split(".")[-1], chunk)
     d, scale, (q, k, v, dout, out) = _kernel_operands(q, k, v, dout, out)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     dq_acc = torch.empty(q.shape if q.dtype == torch.bfloat16 else (0,), dtype=torch.float32, device=q.device)
-    kernels().masked_attention_bwd(q, k, v, dout, out, lse, valid_u8, delta, dq_acc, dq, dk, dv, scale)
+    kernels().masked_attention_bwd(q, k, v, dout, out, lse, valid_u8, delta, dq_acc, dq, dk, dv, scale, chunk)
     masked_attention_bwd_count.add(signature)
     return dq[..., :d], dk[..., :d], dv[..., :d]
 
 
-def masked_attention_bwd_dq(q, k, v, dout, lse, out, valid_u8):
+def masked_attention_bwd_dq(q, k, v, dout, lse, out, valid_u8, chunk: int = 0):
     """dq alone: the first gradient of ``masked_attention_bwd_dkv``'s launch
     (``benchmark/harness.py`` wraps this name beside it)."""
-    return masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8)[0]
+    return masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8, chunk=chunk)[0]
 
 
 class MaskedAttention(torch.autograd.Function):
     """K1 forward, K1b backward, on contiguous CUDA tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, valid_u8):
-        out, lse = _launch_fwd(q, k, v, valid_u8, with_lse=True)
+    def forward(ctx, q, k, v, valid_u8, chunk):
+        out, lse = _launch_fwd(q, k, v, valid_u8, with_lse=True, chunk=chunk)
         ctx.save_for_backward(q, k, v, valid_u8, out, lse)
+        ctx.chunk = chunk
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, valid_u8, out, lse = ctx.saved_tensors
         dout = dout.to(q.dtype).contiguous()
-        dq, dk, dv = masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8)
-        return dq, dk, dv, None
+        dq, dk, dv = masked_attention_bwd_dkv(q, k, v, dout, lse, out, valid_u8, chunk=ctx.chunk)
+        return dq, dk, dv, None, None
 
 
-def masked_attention_fwd(q, k, v, key_valid):
+def masked_attention_fwd(q, k, v, key_valid, chunk: int = 0):
     """The kernel's wrapper: (B, H, T, D) q, k, v and a (B, T) key mask.
 
     On a CUDA tensor: q, k, v must be contiguous, of one shape and of one
@@ -246,17 +267,20 @@ def masked_attention_fwd(q, k, v, key_valid):
     a CPU tensor this is the plain version.
     """
     if not q.is_cuda:
-        return masked_self_attention_plain(q, k, v, key_valid)
+        return masked_self_attention_plain(q, k, v, key_valid, chunk=chunk)
+    if chunk < 0:
+        raise ValueError(f"chunk must be 0 (none) or positive, got {chunk}")
     valid_u8 = _check_cuda_inputs(q, k, v, key_valid)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return MaskedAttention.apply(q, k, v, valid_u8)
-    return _launch_fwd(q, k, v, valid_u8, with_lse=False)[0]
+        return MaskedAttention.apply(q, k, v, valid_u8, chunk)
+    return _launch_fwd(q, k, v, valid_u8, with_lse=False, chunk=chunk)[0]
 
 
-def masked_self_attention(q, k, v, key_valid, *, backend: str = "auto"):
-    """Softmax(q·kᵀ/√D masked to valid keys)·v; (B, H, T, D) in v's dtype."""
+def masked_self_attention(q, k, v, key_valid, *, backend: str = "auto", chunk: int = 0):
+    """Softmax(q·kᵀ/√D masked to valid keys, and with ``chunk`` > 0 to the
+    query's chunk and those before it)·v; (B, H, T, D) in v's dtype."""
     if backend not in BACKENDS:
         raise ValueError(f"Unknown attention backend {backend!r}")
     if backend == "einsum":
-        return masked_self_attention_plain(q, k, v, key_valid)
-    return masked_attention_fwd(q, k, v, key_valid)
+        return masked_self_attention_plain(q, k, v, key_valid, chunk=chunk)
+    return masked_attention_fwd(q, k, v, key_valid, chunk=chunk)

@@ -15,14 +15,15 @@
 const char* masked_attention_fwd_launch(const void* q, const void* k, const void* v,
                                         const uint8_t* key_valid, void* out, float* lse,
                                         int batch, int n_heads, int seq, int dim, bool bf16,
-                                        float qk_scale_log2, int layout, cudaStream_t stream);
+                                        float qk_scale_log2, int layout, int chunk,
+                                        cudaStream_t stream);
 int masked_attention_fwd_layout(int batch, int n_heads, int seq);
 cudaError_t masked_attention_fwd_attributes(int layout, int dim, int* out);
 const char* masked_attention_bwd_launch(const void* q, const void* k, const void* v,
                                         const void* dout, const void* out, const float* lse,
                                         const uint8_t* key_valid, float* delta, float* dq_acc,
                                         void* dq, void* dk, void* dv, int batch, int n_heads,
-                                        int seq, int dim, float scale, bool bf16,
+                                        int seq, int dim, float scale, bool bf16, int chunk,
                                         cudaStream_t stream);
 cudaError_t masked_attention_bwd_attributes(int dim, int* out);
 long long mas_scratch_words(int batch, int tx, int ty);
@@ -108,11 +109,12 @@ void check_rows(const torch::Tensor& t, const torch::Tensor& q, const char* name
 // the backward needs; an empty lse skips it.  `scale`: the softmax scale of
 // the true head dim (bf16 takes D zero-padded to a multiple of 8).
 // `layout` (bf16): 0 by shape, 1 one warpgroup per block, 2 two warpgroups
-// splitting the keys.  Allocates nothing.
+// splitting the keys.  `chunk` > 0: chunk-causal, query i sees keys below
+// (i / chunk + 1) · chunk only.  Allocates nothing.
 void masked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
                           const torch::Tensor& v, const torch::Tensor& key_valid,
                           const torch::Tensor& out, const torch::Tensor& lse, double scale,
-                          int64_t layout) {
+                          int64_t layout, int64_t chunk) {
   const auto [batch, n_heads, seq, dim] = check_heads(q, {&q, &k, &v, &out});
   check_mask(key_valid, q, batch, seq);
   const bool with_lse = lse.numel() > 0;
@@ -125,7 +127,7 @@ void masked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
       with_lse ? lse.data_ptr<float>() : nullptr, static_cast<int>(batch),
       static_cast<int>(n_heads), static_cast<int>(seq), static_cast<int>(dim),
       q.scalar_type() == torch::kBFloat16, static_cast<float>(scale * 1.4426950408889634),
-      static_cast<int>(layout), c10::cuda::getCurrentCUDAStream().stream());
+      static_cast<int>(layout), static_cast<int>(chunk), c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == nullptr, "masked_attention_fwd: ", err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -134,13 +136,14 @@ void masked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
 // softmax scale `scale` (that of the true head dim when the wrapper padded
 // it).  delta: (B, H, T) fp32 scratch, filled with rowsum(dout * out);
 // dq_acc: for bf16 a (B, H, T, D) fp32 scratch the dq products are summed
-// in, for fp32 empty.  Writes dq, dk, dv; allocates nothing.
+// in, for fp32 empty.  `chunk`: the forward's.  Writes dq, dk, dv;
+// allocates nothing.
 void masked_attention_bwd(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
                           const torch::Tensor& dout, const torch::Tensor& out,
                           const torch::Tensor& lse, const torch::Tensor& key_valid,
                           const torch::Tensor& delta, const torch::Tensor& dq_acc,
                           const torch::Tensor& dq, const torch::Tensor& dk, const torch::Tensor& dv,
-                          double scale) {
+                          double scale, int64_t chunk) {
   const auto [batch, n_heads, seq, dim] =
       check_heads(q, {&q, &k, &v, &dout, &out, &dq, &dk, &dv});
   check_mask(key_valid, q, batch, seq);
@@ -159,7 +162,7 @@ void masked_attention_bwd(const torch::Tensor& q, const torch::Tensor& k, const 
       lse.data_ptr<float>(), key_valid.data_ptr<uint8_t>(), delta.data_ptr<float>(),
       bf16 ? dq_acc.data_ptr<float>() : nullptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
       static_cast<int>(batch), static_cast<int>(n_heads), static_cast<int>(seq),
-      static_cast<int>(dim), static_cast<float>(scale), bf16,
+      static_cast<int>(dim), static_cast<float>(scale), bf16, static_cast<int>(chunk),
       c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == nullptr, "masked_attention_bwd: ", err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -575,13 +578,16 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("masked_attention_fwd", &masked_attention_fwd,
         "masked self-attention forward (sm_90a), writes out (and lse) in place", py::arg("q"),
         py::arg("k"), py::arg("v"), py::arg("key_valid"), py::arg("out"), py::arg("lse"),
-        py::arg("scale"), py::arg("layout") = 0);
+        py::arg("scale"), py::arg("layout") = 0, py::arg("chunk") = 0);
   m.def("masked_attention_fwd_layout", &masked_attention_fwd_layout_binding,
         "the bf16 forward layout (1 or 2) chosen by shape");
   m.def("masked_attention_fwd_attributes", &masked_attention_fwd_attributes_binding,
         "registers, shared memory and local bytes of a bf16 forward kernel");
   m.def("masked_attention_bwd", &masked_attention_bwd,
-        "masked self-attention backward, dq, dk and dv (sm_90a), in place");
+        "masked self-attention backward, dq, dk and dv (sm_90a), in place", py::arg("q"),
+        py::arg("k"), py::arg("v"), py::arg("dout"), py::arg("out"), py::arg("lse"),
+        py::arg("key_valid"), py::arg("delta"), py::arg("dq_acc"), py::arg("dq"), py::arg("dk"),
+        py::arg("dv"), py::arg("scale"), py::arg("chunk") = 0);
   m.def("masked_attention_bwd_attributes", &masked_attention_bwd_attributes_binding,
         "registers, shared memory and local bytes of a bf16 backward kernel");
   m.def("mas_scratch_words", &mas_scratch_words_binding,

@@ -12,7 +12,11 @@
 //   S = q·kᵀ, P = exp2(S·scale·log2e − lse), dV = Pᵀ·dO, dP = dO·vᵀ,
 //   dS = P∘(dP − D), dQ = scale·dS·k, dK = scale·dSᵀ·q.
 // Padded keys get dk = dv = 0; every query row, padded or not, back-
-// propagates through the valid keys it attended, as in the forward.
+// propagates through the valid keys it attended, as in the forward.  With a
+// chunk c > 0 (chunk-causal) query i attended key j only where also
+// j < (⌊i / c⌋ + 1)·c, that is i ≥ ⌊j / c⌋·c: a key block's query loop starts
+// at the tile of the first query that sees its first key, and P is 0 past
+// each key row's bound by the same −inf bias as a padded key.
 //
 // What bounds it on the card: the function is five products,
 // 10·B·H·T·D·(valid keys) flops, against about 8·B·H·T·D·2 bytes, so the
@@ -109,7 +113,7 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const uint8_t* __restrict__ key_valid, float* __restrict__ dk,
                         float* __restrict__ dv, int n_heads, int seq, int dim, float scale,
-                        float scale_log2) {
+                        float scale_log2, int chunk) {
   constexpr int kPer = DP / kLanes;
   __shared__ __align__(16) float qs[kTileF * DP];
   __shared__ __align__(16) float dos[kTileF * DP];
@@ -124,6 +128,7 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const size_t rows = (static_cast<size_t>(b) * n_heads + h) * static_cast<size_t>(seq);
   const size_t head = rows * dim;
   const bool key_ok = key < seq && key_valid[static_cast<size_t>(b) * seq + key] != 0;
+  const int first_query = chunk > 0 ? key / chunk * chunk : 0;  // the first query that sees it
 
   float kr[kPer], vr[kPer], dka[kPer], dva[kPer];
 #pragma unroll
@@ -165,7 +170,7 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       }
       sp = group_sum(sp);
       dp = group_sum(dp);
-      const float p = key_ok ? exp2f(fmaf(sp, scale_log2, -ls[j])) : 0.f;
+      const float p = key_ok && q0 + j >= first_query ? exp2f(fmaf(sp, scale_log2, -ls[j])) : 0.f;
       const float ds = p * (dp - dls[j]);
 #pragma unroll
       for (int m = 0; m < kPer; ++m) {
@@ -194,7 +199,7 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        const uint8_t* __restrict__ key_valid, float* __restrict__ dq,
-                       int n_heads, int seq, int dim, float scale, float scale_log2) {
+                       int n_heads, int seq, int dim, float scale, float scale_log2, int chunk) {
   constexpr int kPer = DP / kLanes;
   __shared__ __align__(16) float ks[kTileF * DP];
   __shared__ __align__(16) float vs[kTileF * DP];
@@ -210,6 +215,7 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const uint8_t* valid = key_valid + static_cast<size_t>(b) * seq;
   const float lse_row = qi < seq ? lse[rows + qi] : INFINITY;
   const float delta_row = qi < seq ? delta[rows + qi] : 0.f;
+  const int row_end = chunk > 0 ? (qi / chunk + 1) * chunk : seq;  // the row's keys end here
 
   float qr[kPer], dor[kPer], dqa[kPer];
 #pragma unroll
@@ -247,7 +253,7 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       sp = group_sum(sp);
       dp = group_sum(dp);
-      const float p = key_ok[j] ? exp2f(fmaf(sp, scale_log2, -lse_row)) : 0.f;
+      const float p = key_ok[j] && k0 + j < row_end ? exp2f(fmaf(sp, scale_log2, -lse_row)) : 0.f;
       const float ds = p * (dp - delta_row);
 #pragma unroll
       for (int m = 0; m < kPer; ++m) dqa[m] = fmaf(ds, krow[s + kLanes * m], dqa[m]);
@@ -379,7 +385,11 @@ __device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
       : "memory");
 }
 
-template <int ATOMS>
+// CHUNKED (chunk > 0): the query loop covers the tiles from that of the
+// first query that sees the block's first key; the chunk's bound of each
+// key row enters Pᵀ's bias by a select, no branch.  With CHUNKED = false the
+// kernel is the unchunked one, instruction for instruction.
+template <int ATOMS, bool CHUNKED>
 __global__ void __launch_bounds__(kThreadsW, 1)
 attn_bwd_dkv_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                   const __grid_constant__ CUtensorMap map_k,
@@ -392,7 +402,7 @@ attn_bwd_dkv_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                   const uint8_t* __restrict__ key_valid,
                                   __nv_bfloat16* __restrict__ dk_out,
                                   __nv_bfloat16* __restrict__ dv_out, int n_heads, int seq, int dim,
-                                  float scale, float scale_log2) {
+                                  float scale, float scale_log2, int chunk) {
   using L = Layout<ATOMS>;
   constexpr int kStages = L::kStages;
   constexpr int kDqCols = 32 * ATOMS;  // dQ columns per warpgroup: half the boxes' width
@@ -410,11 +420,15 @@ attn_bwd_dkv_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int b = blockIdx.z;
   const int bh = b * n_heads + blockIdx.y;
   const int key0 = blockIdx.x * kBlockKeys;
-  const int n_tiles = (seq + 63) / 64;
+  // the query tiles that see the block's keys: q_first .. of them all
+  const int q_first = CHUNKED ? key0 / chunk * chunk / 64 : 0;
+  const int n_tiles = (seq + 63) / 64 - q_first;
   const int start = (2 * blockIdx.x) % n_tiles;  // this block's first query tile
   const uint8_t* valid = key_valid + static_cast<size_t>(b) * seq;
   // the query tiles in this block's order: its n-th is tile(n)
-  auto tile = [&](int n) { return start + n < n_tiles ? start + n : start + n - n_tiles; };
+  auto tile = [&](int n) {
+    return q_first + (start + n < n_tiles ? start + n : start + n - n_tiles);
+  };
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -470,6 +484,9 @@ attn_bwd_dkv_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   // 0 for a valid key row, −inf for a padded one (or one past T): P = 0
   const float bias0 = key < seq && valid[key] != 0 ? 0.f : -INFINITY;
   const float bias1 = key + 8 < seq && valid[key + 8] != 0 ? 0.f : -INFINITY;
+  // (CHUNKED) the first query that sees each of this thread's key rows
+  const int first0 = CHUNKED ? key / chunk * chunk : 0;
+  const int first1 = CHUNKED ? (key + 8) / chunk * chunk : 0;
   const float* lse_h = lse + static_cast<size_t>(bh) * seq;
   const float* delta_h = delta + static_cast<size_t>(bh) * seq;
   const bool issuer = (tid & 127) == 0;  // its warpgroup's bulk copies and reduce-adds
@@ -527,17 +544,27 @@ attn_bwd_dkv_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t stage = s_ring + (n % kStages) * L::kStage;
     const float* ls = rows_s + (n & 1) * 128;  // lse of the tile's 64 queries, then delta
 
-    // Pᵀ in place of Sᵀ: 0 for a padded key row (bias −inf) and for query
-    // columns past T (lse +inf)
+    // Pᵀ in place of Sᵀ: 0 for a padded key row (bias −inf), for query
+    // columns past T (lse +inf) and (CHUNKED) for queries before a key
+    // row's chunk
     wgmma_wait<1>();
     fence_acc(st);
+    const int qt = 64 * tile(n) + 2 * t;  // this thread's first query column
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
-      st[4 * j + 0] = fast_exp2(fmaf(st[4 * j + 0], scale_log2, bias0 - l2.x));
-      st[4 * j + 1] = fast_exp2(fmaf(st[4 * j + 1], scale_log2, bias0 - l2.y));
-      st[4 * j + 2] = fast_exp2(fmaf(st[4 * j + 2], scale_log2, bias1 - l2.x));
-      st[4 * j + 3] = fast_exp2(fmaf(st[4 * j + 3], scale_log2, bias1 - l2.y));
+      float b00 = bias0, b01 = bias0, b10 = bias1, b11 = bias1;
+      if constexpr (CHUNKED) {
+        const int qc = qt + 8 * j;
+        b00 = qc >= first0 ? bias0 : -INFINITY;
+        b01 = qc + 1 >= first0 ? bias0 : -INFINITY;
+        b10 = qc >= first1 ? bias1 : -INFINITY;
+        b11 = qc + 1 >= first1 ? bias1 : -INFINITY;
+      }
+      st[4 * j + 0] = fast_exp2(fmaf(st[4 * j + 0], scale_log2, b00 - l2.x));
+      st[4 * j + 1] = fast_exp2(fmaf(st[4 * j + 1], scale_log2, b01 - l2.y));
+      st[4 * j + 2] = fast_exp2(fmaf(st[4 * j + 2], scale_log2, b10 - l2.x));
+      st[4 * j + 3] = fast_exp2(fmaf(st[4 * j + 3], scale_log2, b11 - l2.y));
     }
     // dSᵀ = Pᵀ∘(dPᵀ − D) in place of dPᵀ
     wgmma_wait<0>();
@@ -642,6 +669,7 @@ struct BwdArgs {
   const uint8_t* key_valid;
   int batch, n_heads, seq, dim;
   float scale, scale_log2;
+  int chunk;
   cudaStream_t stream;
 };
 
@@ -652,10 +680,10 @@ void launch_f32(const BwdArgs& a, void* dq, void* dk, void* dv) {
               *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout);
   attn_bwd_dkv_f32_kernel<DP><<<grid, kThreadsF, 0, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, a.key_valid, static_cast<float*>(dk), static_cast<float*>(dv),
-      a.n_heads, a.seq, a.dim, a.scale, a.scale_log2);
+      a.n_heads, a.seq, a.dim, a.scale, a.scale_log2, a.chunk);
   attn_bwd_dq_f32_kernel<DP><<<grid, kThreadsF, 0, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, a.key_valid, static_cast<float*>(dq), a.n_heads, a.seq, a.dim,
-      a.scale, a.scale_log2);
+      a.scale, a.scale_log2, a.chunk);
 }
 
 // what TMA needs of the bf16 operands; nullptr when every check passes
@@ -669,7 +697,7 @@ const char* check_tma(const BwdArgs& a, std::initializer_list<const void*> more)
   return nullptr;
 }
 
-template <int ATOMS>
+template <int ATOMS, bool CHUNKED>
 const char* launch_bf16(const BwdArgs& a, float* dq_acc, void* dq, void* dk, void* dv) {
   if (const char* err = check_tma(a, {dq_acc, dq, dk, dv})) return err;
   const int bh = a.batch * a.n_heads;
@@ -679,7 +707,7 @@ const char* launch_bf16(const BwdArgs& a, float* dq_acc, void* dq, void* dk, voi
       !encode_heads(&mdk, dk, bh, a.seq, a.dim) || !encode_heads(&mdv, dv, bh, a.seq, a.dim) ||
       !encode_heads_f32(&mdq, dq_acc, bh, a.seq, a.dim))
     return "cuTensorMapEncodeTiled refused a tensor map";
-  const auto kernel = attn_bwd_dkv_dq_bf16_wgmma_kernel<ATOMS>;
+  const auto kernel = attn_bwd_dkv_dq_bf16_wgmma_kernel<ATOMS, CHUNKED>;
   const int smem = static_cast<int>(Layout<ATOMS>::kBytes);
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
     return "cudaFuncSetAttribute refused the backward kernel's shared memory";
@@ -687,11 +715,17 @@ const char* launch_bf16(const BwdArgs& a, float* dq_acc, void* dq, void* dk, voi
   kernel<<<grid, kThreadsW, smem, a.stream>>>(
       mq, mk, mv, mdo, mdk, mdv, mdq, a.lse, a.delta, a.key_valid,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.n_heads, a.seq, a.dim,
-      a.scale, a.scale_log2);
+      a.scale, a.scale_log2, a.chunk);
   const long long n4 = static_cast<long long>(bh) * a.seq * a.dim / 4;
   attn_bwd_dq_convert_kernel<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, a.stream>>>(
       reinterpret_cast<const float4*>(dq_acc), static_cast<uint2*>(dq), n4, a.scale);
   return nullptr;
+}
+
+template <int ATOMS>
+const char* launch_bf16_chunk(const BwdArgs& a, float* dq_acc, void* dq, void* dk, void* dv) {
+  return a.chunk > 0 ? launch_bf16<ATOMS, true>(a, dq_acc, dq, dk, dv)
+                     : launch_bf16<ATOMS, false>(a, dq_acc, dq, dk, dv);
 }
 
 }  // namespace
@@ -703,17 +737,19 @@ const char* launch_bf16(const BwdArgs& a, float* dq_acc, void* dq, void* dk, voi
 // the pre-pass fills with rowsum(dout∘out); dq_acc: (B, H, T, D) fp32
 // scratch for bf16 (unused for fp32); scale: the softmax scale of the true
 // head dim (bf16 takes D padded to a multiple of 8, 16-byte-aligned
-// pointers).
+// pointers); chunk: the forward's (0, or the chunk-causal chunk).
 const char* masked_attention_bwd_launch(const void* q, const void* k, const void* v,
                                         const void* dout, const void* out, const float* lse,
                                         const uint8_t* key_valid, float* delta, float* dq_acc,
                                         void* dq, void* dk, void* dv, int batch, int n_heads,
-                                        int seq, int dim, float scale, bool bf16,
+                                        int seq, int dim, float scale, bool bf16, int chunk,
                                         cudaStream_t stream) {
   if (dim < 1 || dim > 128) return "head dim outside [1, 128]";
+  if (chunk < 0) return "chunk must be 0 (none) or positive";
   const BwdArgs a{q,   k,       v,   dout, lse,   delta,
                   key_valid, batch, n_heads, seq, dim, scale,
-                  static_cast<float>(static_cast<double>(scale) * 1.4426950408889634), stream};
+                  static_cast<float>(static_cast<double>(scale) * 1.4426950408889634), chunk,
+                  stream};
   const long long rows = static_cast<long long>(batch) * n_heads * seq;
   const unsigned delta_blocks = static_cast<unsigned>((rows + kDeltaRows - 1) / kDeltaRows);
   if (bf16) {
@@ -722,7 +758,8 @@ const char* masked_attention_bwd_launch(const void* q, const void* k, const void
     attn_bwd_dq_delta_kernel<__nv_bfloat16><<<delta_blocks, kDeltaRows * kLanes, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(dout), static_cast<const __nv_bfloat16*>(out), delta,
         dq_acc, rows, dim);
-    return dim <= 64 ? launch_bf16<1>(a, dq_acc, dq, dk, dv) : launch_bf16<2>(a, dq_acc, dq, dk, dv);
+    return dim <= 64 ? launch_bf16_chunk<1>(a, dq_acc, dq, dk, dv)
+                     : launch_bf16_chunk<2>(a, dq_acc, dq, dk, dv);
   }
   attn_bwd_dq_delta_kernel<float><<<delta_blocks, kDeltaRows * kLanes, 0, stream>>>(
       static_cast<const float*>(dout), static_cast<const float*>(out), delta, nullptr, rows, dim);
@@ -742,8 +779,8 @@ const char* masked_attention_bwd_launch(const void* q, const void* k, const void
 cudaError_t masked_attention_bwd_attributes(int dim, int* out) {
   cudaFuncAttributes fa{};
   const bool wide = dim > 64;
-  const void* fn = wide ? reinterpret_cast<const void*>(attn_bwd_dkv_dq_bf16_wgmma_kernel<2>)
-                        : reinterpret_cast<const void*>(attn_bwd_dkv_dq_bf16_wgmma_kernel<1>);
+  const void* fn = wide ? reinterpret_cast<const void*>(attn_bwd_dkv_dq_bf16_wgmma_kernel<2, false>)
+                        : reinterpret_cast<const void*>(attn_bwd_dkv_dq_bf16_wgmma_kernel<1, false>);
   const cudaError_t err = cudaFuncGetAttributes(&fa, fn);
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.sharedSizeBytes);

@@ -13,6 +13,10 @@
 // dtype, and a row with no valid key divides 0 by 0 as the plain version
 // does.  The optional (B, H, T) fp32 lse is log2 Σ exp2(q·kᵀ·scale·log2e)
 // over the valid keys, +inf for a row with none; the backward reads it.
+// A chunk c > 0 (chunk-causal attention, as a streaming model trains it)
+// also hides from query i every key j ≥ (⌊i / c⌋ + 1)·c: a block's key loop
+// ends at the tile of the last key its rows see, and each row's bound joins
+// the key mask in the tile's bias.
 //
 // What bounds it on the card: at (16,5,512,64) bf16 the function reads q, k,
 // v and writes out once, 4·B·H·T·D·2 bytes, 6.3 µs at 3.35 TB/s, against
@@ -88,7 +92,7 @@ masked_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __rest
                                 const float* __restrict__ v,
                                 const uint8_t* __restrict__ key_valid,
                                 float* __restrict__ out, float* __restrict__ lse,
-                                int n_heads, int seq, int dim, float qk_scale_log2) {
+                                int n_heads, int seq, int dim, float qk_scale_log2, int chunk) {
   // keys per shared-memory tile: two fp32 tiles stay under 48 KB
   constexpr int kKeys = DP <= 64 ? 64 : 32;
   constexpr int kPer = kKeys / kSplit;  // keys per thread per tile
@@ -122,6 +126,8 @@ masked_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __rest
   for (int d = 0; d < DP; ++d) acc[d] = 0.f;
   float m = -INFINITY;  // running max (log2 units) over this thread's keys
   float l = 0.f;        // running sum of exp2(logit - m)
+  // chunk > 0: the row sees only the keys below its chunk's end
+  const int row_end = chunk > 0 ? (qi / chunk + 1) * chunk : seq;
 
   for (int k0 = 0; k0 < seq; k0 += kKeys) {
     __syncthreads();  // every thread is done with the previous tile
@@ -152,7 +158,7 @@ masked_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __rest
         dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
         dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
       }
-      sc[i] = key_ok[j] ? dot : -INFINITY;
+      sc[i] = key_ok[j] && k0 + j < row_end ? dot : -INFINITY;
       tile_max = fmaxf(tile_max, sc[i]);
     }
     if (tile_max == -INFINITY) continue;  // no valid key of this thread here
@@ -212,11 +218,11 @@ masked_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __rest
 template <int DP>
 void launch_f32(const void* q, const void* k, const void* v, const uint8_t* key_valid, void* out,
                 float* lse, int batch, int n_heads, int seq, int dim, float qk_scale_log2,
-                cudaStream_t stream) {
+                int chunk, cudaStream_t stream) {
   const dim3 grid((seq + kRows - 1) / kRows, n_heads, batch);
   masked_attention_fwd_f32_kernel<DP><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      key_valid, static_cast<float*>(out), lse, n_heads, seq, dim, qk_scale_log2);
+      key_valid, static_cast<float*>(out), lse, n_heads, seq, dim, qk_scale_log2, chunk);
 }
 
 
@@ -256,7 +262,14 @@ struct FwdLayout {
   static constexpr int kMinBlocks = NWG > 1 ? 1 : (ATOMS == 1 ? 3 : 2);
 };
 
-template <int ATOMS, int NWG>
+// CHUNKED (chunk > 0): query i sees key j only below its chunk's end,
+// j < (i / chunk + 1) · chunk.  The block's key loop ends at the tile of the
+// last key its last row sees; each row's bound enters the key bits that are
+// formed before a tile's wait, so a tile wholly below every row's bound
+// passes it unchanged, and the products carry no branch.  With
+// CHUNKED = false the kernel is the unchunked one, instruction for
+// instruction.
+template <int ATOMS, int NWG, bool CHUNKED>
 __global__ void __launch_bounds__(FwdLayout<ATOMS, NWG>::kThreads, FwdLayout<ATOMS, NWG>::kMinBlocks)
 masked_attention_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                        const __grid_constant__ CUtensorMap map_k,
@@ -264,7 +277,7 @@ masked_attention_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q
                                        const __grid_constant__ CUtensorMap map_out,
                                        const uint8_t* __restrict__ key_valid,
                                        float* __restrict__ lse, int n_heads, int seq,
-                                       float qk_scale_log2) {
+                                       float qk_scale_log2, int chunk) {
   using L = FwdLayout<ATOMS, NWG>;
   constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -279,7 +292,11 @@ masked_attention_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q
   const int b = blockIdx.z;
   const int bh = b * n_heads + blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
-  const int n_tiles = (seq + 63) / 64;
+  // the key tiles the block's rows see: all of them, or (CHUNKED) those up
+  // to the end of its last row's chunk
+  const int key_end =
+      CHUNKED ? min(seq, ((min(q0 + kBlockQ, seq) - 1) / chunk + 1) * chunk) : seq;
+  const int n_tiles = (key_end + 63) / 64;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -316,6 +333,10 @@ masked_attention_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q
   const int g = lane >> 2;
   const int t = lane & 3;
   const uint8_t* valid = key_valid + static_cast<size_t>(b) * seq;
+  const int row = q0 + 16 * warp + g;  // this thread's rows: row, row + 8
+  // (CHUNKED) the end of each row's visible keys
+  const int end0 = CHUNKED ? (row / chunk + 1) * chunk : 0;
+  const int end1 = CHUNKED ? ((row + 8) / chunk + 1) * chunk : 0;
 
   float o[ATOMS][32];
 #pragma unroll
@@ -330,18 +351,25 @@ masked_attention_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q
     const int s = i % kStages;
     const uint32_t st = s_ring + s * L::kStage;
     // bit 2j + c: key 8j + 2t + c of the tile (this thread's columns) is
-    // valid and below T; loaded before the products so the latency hides
-    // behind the wait, branch-free
+    // valid and below T (CHUNKED: and below the chunk's end of row g, in
+    // key_bits, and of row g + 8, in key_bits1); loaded before the products
+    // so the latency hides behind the wait, branch-free
     const int k0 = 64 * i;
-    uint32_t key_bits = 0;
+    uint32_t key_bits = 0, key_bits1 = 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int kc = k0 + 8 * j + 2 * t + c;
         const uint32_t ok = (valid[min(kc, seq - 1)] != 0) & (kc < seq);
-        key_bits |= ok << (2 * j + c);
+        if constexpr (CHUNKED) {
+          key_bits |= (ok & (kc < end0)) << (2 * j + c);
+          key_bits1 |= (ok & (kc < end1)) << (2 * j + c);
+        } else {
+          key_bits |= ok << (2 * j + c);
+        }
       }
+    if constexpr (!CHUNKED) key_bits1 = key_bits;
     mbar_wait(bars + 8 * s, (i / kStages) & 1);
 
     // S = Q·Kᵀ: the block's 64 queries × the tile's 64 keys
@@ -362,10 +390,12 @@ masked_attention_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q
     for (int j = 0; j < 8; ++j) {
       const float bias0 = ((key_bits >> (2 * j)) & 1u) ? 0.f : -INFINITY;
       const float bias1 = ((key_bits >> (2 * j + 1)) & 1u) ? 0.f : -INFINITY;
+      const float bias2 = ((key_bits1 >> (2 * j)) & 1u) ? 0.f : -INFINITY;
+      const float bias3 = ((key_bits1 >> (2 * j + 1)) & 1u) ? 0.f : -INFINITY;
       sc[4 * j + 0] = fmaf(sc[4 * j + 0], qk_scale_log2, bias0);
       sc[4 * j + 1] = fmaf(sc[4 * j + 1], qk_scale_log2, bias1);
-      sc[4 * j + 2] = fmaf(sc[4 * j + 2], qk_scale_log2, bias0);
-      sc[4 * j + 3] = fmaf(sc[4 * j + 3], qk_scale_log2, bias1);
+      sc[4 * j + 2] = fmaf(sc[4 * j + 2], qk_scale_log2, bias2);
+      sc[4 * j + 3] = fmaf(sc[4 * j + 3], qk_scale_log2, bias3);
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -463,7 +493,6 @@ masked_attention_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q
   // a row with no valid key at all divides 0 by 0, as the plain version does
   const float inv0 = 1.f / l0;
   const float inv1 = 1.f / l1;
-  const int row = q0 + 16 * warp + g;  // this thread's rows: row, row + 8
   if (lse != nullptr && t == 0) {
     float* lh = lse + static_cast<size_t>(bh) * seq;
     if (row < seq) lh[row] = lse_log2(m0, l0);
@@ -496,10 +525,11 @@ struct FwdArgs {
   float* lse;
   int batch, n_heads, seq, dim;
   float qk_scale_log2;
+  int chunk;
   cudaStream_t stream;
 };
 
-template <int ATOMS, int NWG>
+template <int ATOMS, int NWG, bool CHUNKED>
 const char* launch_bf16(const FwdArgs& a) {
   using L = FwdLayout<ATOMS, NWG>;
   const int bh = a.batch * a.n_heads;
@@ -507,14 +537,19 @@ const char* launch_bf16(const FwdArgs& a) {
   if (!encode_heads(&mq, a.q, bh, a.seq, a.dim) || !encode_heads(&mk, a.k, bh, a.seq, a.dim) ||
       !encode_heads(&mv, a.v, bh, a.seq, a.dim) || !encode_heads(&mo, a.out, bh, a.seq, a.dim))
     return "cuTensorMapEncodeTiled refused a tensor map";
-  const auto kernel = masked_attention_fwd_bf16_wgmma_kernel<ATOMS, NWG>;
+  const auto kernel = masked_attention_fwd_bf16_wgmma_kernel<ATOMS, NWG, CHUNKED>;
   const int smem = static_cast<int>(L::kBytes);
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
     return "cudaFuncSetAttribute refused the forward kernel's shared memory";
   const dim3 grid((a.seq + kBlockQ - 1) / kBlockQ, a.n_heads, a.batch);
   kernel<<<grid, L::kThreads, smem, a.stream>>>(mq, mk, mv, mo, a.key_valid, a.lse, a.n_heads,
-                                                a.seq, a.qk_scale_log2);
+                                                a.seq, a.qk_scale_log2, a.chunk);
   return nullptr;
+}
+
+template <int ATOMS, int NWG>
+const char* launch_bf16_chunk(const FwdArgs& a) {
+  return a.chunk > 0 ? launch_bf16<ATOMS, NWG, true>(a) : launch_bf16<ATOMS, NWG, false>(a);
 }
 
 // layout by shape: split the key tiles over two warpgroups when the grid
@@ -530,8 +565,8 @@ const char* launch_bf16_layout(const FwdArgs& a, int layout) {
   for (const void* p : {a.q, a.k, a.v, static_cast<const void*>(a.out)})
     if (!aligned16(p)) return "bf16 forward operands must be 16-byte aligned";
   const bool wide = a.dim > 64;
-  if (layout == 1) return wide ? launch_bf16<2, 1>(a) : launch_bf16<1, 1>(a);
-  return wide ? launch_bf16<2, 2>(a) : launch_bf16<1, 2>(a);
+  if (layout == 1) return wide ? launch_bf16_chunk<2, 1>(a) : launch_bf16_chunk<1, 1>(a);
+  return wide ? launch_bf16_chunk<2, 2>(a) : launch_bf16_chunk<1, 2>(a);
 }
 
 const char* const kBadDim = "head dim outside [1, 128]";
@@ -546,19 +581,23 @@ const char* const kBadDim = "head dim outside [1, 128]";
 // scale of the true head dim times log2(e) (bf16 takes D padded to a
 // multiple of 8 and 16-byte-aligned pointers).  layout (bf16 only): 0 by
 // shape, 1 one warpgroup per block, 2 two warpgroups splitting the keys.
+// chunk > 0: query i sees only keys j < (i / chunk + 1) · chunk (chunk-causal),
+// besides the key mask; 0: every valid key.
 const char* masked_attention_fwd_launch(const void* q, const void* k, const void* v,
                                         const uint8_t* key_valid, void* out, float* lse,
                                         int batch, int n_heads, int seq, int dim, bool bf16,
-                                        float qk_scale_log2, int layout, cudaStream_t stream) {
+                                        float qk_scale_log2, int layout, int chunk,
+                                        cudaStream_t stream) {
   if (dim < 1 || dim > 128) return kBadDim;
+  if (chunk < 0) return "chunk must be 0 (none) or positive";
   if (bf16) {
     if (layout == 0) layout = layout_for(batch, n_heads, seq);
     if (layout != 1 && layout != 2) return "layout must be 0 (by shape), 1 or 2";
     return launch_bf16_layout(
-        FwdArgs{q, k, v, key_valid, out, lse, batch, n_heads, seq, dim, qk_scale_log2, stream},
+        FwdArgs{q, k, v, key_valid, out, lse, batch, n_heads, seq, dim, qk_scale_log2, chunk, stream},
         layout);
   }
-#define MATCHA_ARGS q, k, v, key_valid, out, lse, batch, n_heads, seq, dim, qk_scale_log2, stream
+#define MATCHA_ARGS q, k, v, key_valid, out, lse, batch, n_heads, seq, dim, qk_scale_log2, chunk, stream
   if (dim <= 8) launch_f32<8>(MATCHA_ARGS);
   else if (dim <= 16) launch_f32<16>(MATCHA_ARGS);
   else if (dim <= 32) launch_f32<32>(MATCHA_ARGS);
@@ -583,10 +622,10 @@ cudaError_t masked_attention_fwd_attributes(int layout, int dim, int* out) {
   const bool wide = dim > 64;
   const void* fn =
       layout == 1
-          ? (wide ? reinterpret_cast<const void*>(masked_attention_fwd_bf16_wgmma_kernel<2, 1>)
-                  : reinterpret_cast<const void*>(masked_attention_fwd_bf16_wgmma_kernel<1, 1>))
-          : (wide ? reinterpret_cast<const void*>(masked_attention_fwd_bf16_wgmma_kernel<2, 2>)
-                  : reinterpret_cast<const void*>(masked_attention_fwd_bf16_wgmma_kernel<1, 2>));
+          ? (wide ? reinterpret_cast<const void*>(masked_attention_fwd_bf16_wgmma_kernel<2, 1, false>)
+                  : reinterpret_cast<const void*>(masked_attention_fwd_bf16_wgmma_kernel<1, 1, false>))
+          : (wide ? reinterpret_cast<const void*>(masked_attention_fwd_bf16_wgmma_kernel<2, 2, false>)
+                  : reinterpret_cast<const void*>(masked_attention_fwd_bf16_wgmma_kernel<1, 2, false>));
   const cudaError_t err = cudaFuncGetAttributes(&fa, fn);
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.sharedSizeBytes);

@@ -75,13 +75,13 @@ class LaunchCounter:
     def __init__(self, name: str):
         self.name = name
         self._n = 0
-        self._signatures: set[tuple] = set()
+        self._signatures: dict[tuple, int] = {}
         self._lock = threading.Lock()
 
     def add(self, signature: tuple) -> None:
         with self._lock:
             self._n += 1
-            self._signatures.add(signature)
+            self._signatures[signature] = self._signatures.get(signature, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
@@ -97,3 +97,8 @@ class LaunchCounter:
         """The distinct signatures launched since the last ``reset``, sorted."""
         with self._lock:
             return sorted(self._signatures)
+
+    def launches_by_signature(self) -> dict[tuple, int]:
+        """Launches since the last ``reset`` by signature."""
+        with self._lock:
+            return dict(self._signatures)

@@ -30,6 +30,16 @@ section is not read:
 
     python -m matcha_tpu_torch.train arch=f5tts_dit data.train_filelist_path=... \
         data.mel_dir=... [dit.depth=...]
+
+``arch=cosyvoice2_flow`` trains CosyVoice 2's flow-matching stage
+(``models/cosyflow.py``; one device) on a corpus of speech tokens (the
+filelist's id column, below 6,561) and 80-band mels at twice their rate,
+with ``COSY_PRESET`` (Adam at the recipe's fine-tuning 1e-5, no decay, b2
+0.999, clip 5, 32,000 frames a batch in 16-token buckets).  Its widths are
+``CosyFlowConfig``'s published ones; ``cosy.<field>=...`` overrides one:
+
+    python -m matcha_tpu_torch.train arch=cosyvoice2_flow data.train_filelist_path=... \
+        data.mel_dir=... [cosy.up_layers=...]
 """
 
 from __future__ import annotations
@@ -40,7 +50,9 @@ import os
 from pathlib import Path
 
 from matcha_tpu_torch.data.dataset import TextMelDataset
-from matcha_tpu_torch.models.config import DIT_ARCH, DataStatistics, DiTConfig, MatchaConfig
+from matcha_tpu_torch.models.config import (
+    COSY_ARCH, DIT_ARCH, CosyFlowConfig, DataStatistics, DiTConfig, MatchaConfig,
+)
 from matcha_tpu_torch.train.optim import OptimizerConfig
 from matcha_tpu_torch.train.trainer import Trainer, TrainerConfig
 from matcha_tpu_torch.utils.configs import compose
@@ -50,30 +62,39 @@ from matcha_tpu_torch.utils.print_config import print_config
 # the overrides ``arch=f5tts_dit`` puts under the command line's (F5TTS_v1_Base.yaml's recipe)
 DIT_PRESET = ("optimizer.lr=7.5e-5", "optimizer.weight_decay=0.01", "optimizer.b2=0.999",
               "optimizer.grad_clip=1.0", "data.max_frames_per_batch=38400", "trainer.use_mesh=false")
+# and those of ``arch=cosyvoice2_flow`` (cosyvoice2.yaml's train_conf, at its fine-tuning rate)
+COSY_PRESET = ("optimizer.lr=1e-5", "optimizer.weight_decay=0.0", "optimizer.b2=0.999", "optimizer.grad_clip=5.0",
+               "data.max_frames_per_batch=32000", "data.text_bucket=16", "trainer.use_mesh=false")
+PRESETS = {DIT_ARCH: DIT_PRESET, COSY_ARCH: COSY_PRESET}
+# arch → (its config section, its config class)
+SECTIONS = {DIT_ARCH: ("dit", DiTConfig), COSY_ARCH: ("cosy", CosyFlowConfig)}
 
 
-def build_dit_config(cfg: dict) -> DiTConfig:
-    """The ``dit:`` section → DiTConfig (published widths where unset; the
-    mel width from ``data.n_feats``); unknown keys raise."""
-    d = dict(cfg.get("dit", {}))
-    unknown = set(d) - {f.name for f in dataclasses.fields(DiTConfig)}
+def build_arch_config(cfg: dict) -> DiTConfig | CosyFlowConfig:
+    """The ``dit:`` (``cosy:``) section → DiTConfig (CosyFlowConfig),
+    published widths where unset, the mel width from ``data.n_feats``;
+    unknown keys raise."""
+    section, cls = SECTIONS[cfg["arch"]]
+    d = dict(cfg.get(section, {}))
+    unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
     if unknown:
-        raise ValueError(f"unknown dit config keys: {sorted(unknown)}")
-    d.setdefault("n_feats", int(cfg.get("data", {}).get("n_feats", DiTConfig.n_feats)))
-    return DiTConfig.from_dict(d)
+        raise ValueError(f"unknown {section} config keys: {sorted(unknown)}")
+    d.setdefault("n_feats", int(cfg.get("data", {}).get("n_feats", cls.n_feats)))
+    return cls.from_dict(d)
 
 
-def build_model_config(cfg: dict) -> MatchaConfig | DiTConfig:
+def build_model_config(cfg: dict) -> MatchaConfig | DiTConfig | CosyFlowConfig:
     """YAML ``model:`` section → MatchaConfig, including nested sections;
-    with ``arch: f5tts_dit``, the ``dit:`` section → DiTConfig.
+    with ``arch: f5tts_dit`` (``cosyvoice2_flow``), the ``dit:`` (``cosy:``)
+    section → DiTConfig (CosyFlowConfig).
 
     Nested ``encoder`` / ``duration_predictor`` / ``decoder`` / ``cfm``
     overlays merge field-by-field onto the defaults (the reference's
     experiment overlays override these freely, e.g. v19's decoder widening);
     unknown keys raise instead of silently vanishing.
     """
-    if cfg.get("arch") == DIT_ARCH:
-        return build_dit_config(cfg)
+    if cfg.get("arch") in SECTIONS:
+        return build_arch_config(cfg)
     m = dict(cfg.get("model", {}))
     stats = cfg.get("data", {}).get("data_statistics", {})
     base = MatchaConfig()
@@ -173,7 +194,8 @@ def default_device() -> str | None:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="Train MatchaTTS-24k (or, with arch=f5tts_dit, F5-TTS's DiT) with PyTorch")
+        description="Train MatchaTTS-24k (or, with arch=f5tts_dit, F5-TTS's DiT; with arch=cosyvoice2_flow, "
+                    "CosyVoice 2's flow stage) with PyTorch")
     parser.add_argument(
         "--config",
         default=str(
@@ -186,8 +208,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     overrides = list(args.overrides)
-    if f"arch={DIT_ARCH}" in overrides:
-        overrides = [*DIT_PRESET, *overrides]
+    for arch, preset in PRESETS.items():
+        if f"arch={arch}" in overrides:
+            overrides = [*preset, *overrides]
     cfg = compose(args.config, overrides)
     if os.environ.get("RANK", "0") == "0":
         print_config(cfg, title="matcha_tpu_torch.train")

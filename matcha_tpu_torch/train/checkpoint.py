@@ -11,9 +11,10 @@ is a checkpoint of the JAX trainer (through ``tools/
 convert_orbax_checkpoint.py --to-orbax`` where that trainer reads orbax
 only): the parameters in the flax layout (``weights.params_to_jax``), the
 optimizer state where optax keeps it, ``['step']`` and ``['epoch']``.
-A DiT's checkpoint (``DiTConfig``) has the same key paths, its
-parameters nested by their torch names (``F5TTS.param_table``),
-and ``"arch": "f5tts_dit"`` in its ``config.json``.
+A DiT's checkpoint (``DiTConfig``) and a CosyVoice 2 flow stage's
+(``CosyFlowConfig``) have the same key paths, their parameters nested by
+their torch names (``F5TTS.param_table``, ``CosyFlow.param_table``), and
+``"arch": "f5tts_dit"`` or ``"cosyvoice2_flow"`` in their ``config.json``.
 
 The optax chain of ``matcha_tpu/train/optim.py`` is
 ``MultiSteps(apply_if_finite(chain(chain(clip, adamw), masked(zero))))``,

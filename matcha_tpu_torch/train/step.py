@@ -1,14 +1,18 @@
-"""One training step: forward → backward → clip → AdamW, for either model.
+"""One training step: forward → backward → clip → AdamW, for any model.
 
 The model is the class the config names (``cfg.model_class()``):
 ``MatchaConfig`` builds MatchaTTS (encoder + MAS + CFM; counterpart of
 ``matcha_tpu/train/step.py``), ``DiTConfig`` builds F5-TTS's DiT
 (``models/dit.py``: text embedding, DiT, flow matching with infilling spans
-and guidance drops), which the JAX package does not have.  The step asks
-the class, never which model it is, for what differs: ``init_params``,
-``batch_inputs`` (the batch fields it takes), ``step_kwargs`` (draws made
-on the host: the DiT's guidance drops, counted in ``F5TTS.dropped``),
-``METRICS`` (the losses it reports: MatchaTTS's four, the DiT's one),
+and guidance drops) and ``CosyFlowConfig`` CosyVoice 2's flow stage
+(``models/cosyflow.py``: token encoder, causal U-Net, flow matching with
+prompts, guidance drops and streaming steps); the JAX package has neither.
+The step asks the class, never which model it is, for what differs:
+``init_params``, ``batch_inputs`` (the batch fields it takes),
+``step_kwargs`` (draws made on the host: the DiT's guidance drops, counted
+in ``F5TTS.dropped``; the flow stage's streaming flag, counted with its
+rows' draws in ``CosyFlow.drawn``), ``METRICS`` (the losses it reports:
+MatchaTTS's four, the others' one),
 ``DROPOUT_WORDS`` and ``PARALLEL`` (the DiT trains on one device: data and
 tensor parallelism raise); the weight-decay mask comes from its parameter
 table (``weights.decay_mask``).  The state is a {name: tensor}

@@ -1,8 +1,9 @@
 """Training loop: epochs over bucketed batches, validation, checkpoints.
 
-It trains either model ``train/step.py`` builds: MatchaTTS from a
-``MatchaConfig``, or F5-TTS's DiT from a ``DiTConfig`` (one device only;
-its checkpoints hold no speaker tables).  Counterpart of
+It trains any model ``train/step.py`` builds: MatchaTTS from a
+``MatchaConfig``, F5-TTS's DiT from a ``DiTConfig`` or CosyVoice 2's flow
+stage from a ``CosyFlowConfig`` (the last two on one device only; their
+checkpoints hold no speaker tables).  Counterpart of
 ``matcha_tpu/train/trainer.py``:
 
   * the sampler re-seeded per epoch (fresh jittered packing, stable count)
@@ -52,7 +53,7 @@ from matcha_tpu_torch.data import native_loader
 from matcha_tpu_torch.data.datamodule import TextMelDataModule
 from matcha_tpu_torch.data.dataset import TextMelDataset
 from matcha_tpu_torch.inference import resolve_device
-from matcha_tpu_torch.models.config import DiTConfig, MatchaConfig
+from matcha_tpu_torch.models.config import CosyFlowConfig, DiTConfig, MatchaConfig
 from matcha_tpu_torch.parallel import mesh, sharding
 from matcha_tpu_torch.train.checkpoint import (
     expand_speaker_tables,
@@ -124,7 +125,7 @@ class NullLogger:
 class Trainer:
     def __init__(
         self,
-        model_cfg: MatchaConfig | DiTConfig,
+        model_cfg: MatchaConfig | DiTConfig | CosyFlowConfig,
         opt_cfg: OptimizerConfig,
         trainer_cfg: TrainerConfig,
         train_dataset: TextMelDataset,
@@ -228,7 +229,7 @@ class Trainer:
         if type(ckpt_cfg) is not type(self.model_cfg):
             raise ValueError(f"{resume_from} holds a {type(ckpt_cfg).__name__}, "
                              f"this run trains a {type(self.model_cfg).__name__}")
-        if isinstance(ckpt_cfg, DiTConfig):
+        if not isinstance(ckpt_cfg, MatchaConfig):  # F5-TTS's DiT, CosyVoice 2's flow: no speaker tables
             return self._state_from_tree(tree, ckpt_cfg, fine_tune)
         want = self.model_cfg.n_spks
         if fine_tune and ckpt_cfg.n_spks != want:

@@ -27,6 +27,16 @@ without grad (the MAS log-prior) count once.
       and backward: the time MLP's first layer takes no input gradient,
       the input projection its whole input's (the text part needs one);
       no embedding lookup, GRN or RoPE
+  cosyflow_train_step_flops(cfg, batch, frames, streaming)
+      CosyVoice 2's flow stage (``models/cosyflow.py``) on ``frames`` mel
+      frames (frames/2 tokens), forward and backward.  Attention counts the
+      (query, key) pairs the masks keep (``kept_pairs``: all n² of a row of
+      n, or under a streaming step's chunk c Σᵢ min(n, (⌊i/c⌋ + 1)·c)), for
+      q·kᵀ, the relative term (q + w)·p and p·v alike; the positions'
+      projection counts its 2n − 1 rows, without an input gradient; the
+      speaker's affine layer and the time MLP's first layer take none; the
+      estimator's first resnet counts its whole input's (μ and the
+      speaker's part need one)
 
 ``*_products`` list the products of one module, for a breakdown by
 component (``utils/profile_stage_b.py``).  Only the transformer decoder is
@@ -37,7 +47,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-from matcha_tpu_torch.models.config import DiTConfig, MatchaConfig
+from matcha_tpu_torch.models.config import CosyFlowConfig, DiTConfig, MatchaConfig
 from matcha_tpu_torch.models.dit import CONV_MULT, CONV_POS_GROUPS, CONV_POS_KERNEL, FREQ_EMBED_DIM
 
 # U-Net evaluations per solver step (models/flow_matching.py)
@@ -224,3 +234,70 @@ def dit_products(cfg: DiTConfig, b: int, n: int) -> list[Product]:
 
 def dit_train_step_flops(cfg: DiTConfig, batch: int, frames: int) -> float:
     return step_flops(dit_products(cfg, batch, frames))
+
+
+def kept_pairs(n: int, chunk: int = 0) -> int:
+    """The (query, key) pairs of a row of ``n`` that attention keeps: n²,
+    or with a chunk c, Σ over queries i of min(n, (⌊i/c⌋ + 1)·c)."""
+    if not chunk:
+        return n * n
+    q, r = divmod(n, chunk)  # q whole chunks, each seeing itself and those before; r queries see all n
+    return chunk * chunk * q * (q + 1) // 2 + r * n
+
+
+def _pair_products(name, b, heads, head_dim, pairs, terms) -> list[Product]:
+    """``terms`` attention products over ``pairs`` (query, key) pairs a row;
+    both operands of each need gradients."""
+    f = 2.0 * b * heads * head_dim * pairs
+    return [Product(f"{name}.{t}", f, 2) for t in terms]
+
+
+def cosyflow_products(cfg: CosyFlowConfig, b: int, n: int, streaming: bool) -> list[Product]:
+    """The flow stage's products on ``b`` rows of ``n`` frames and ``n //
+    token_mel_ratio`` tokens, its attention chunk-causal where ``streaming``."""
+    d, heads = cfg.encoder_dim, cfg.encoder_heads
+    tok = n // cfg.token_mel_ratio
+    chunks = (cfg.chunk, cfg.chunk * cfg.token_mel_ratio) if streaming else (0, 0)
+
+    def layers(prefix, count, t, chunk):
+        out = []
+        for i in range(count):
+            out += [_conv(f"{prefix}{i}.linear_{x}", b, t, d, d) for x in "qkv"]
+            out.append(_conv(f"{prefix}{i}.linear_pos", b, 2 * t - 1, d, d, grad_input=False))
+            out += _pair_products(f"{prefix}{i}.attention", b, heads, d // heads, kept_pairs(t, chunk),
+                                  ("qk", "qp", "pv"))
+            out += [_conv(f"{prefix}{i}.linear_out", b, t, d, d), _conv(f"{prefix}{i}.w_1", b, t, d, cfg.encoder_ffn),
+                    _conv(f"{prefix}{i}.w_2", b, t, cfg.encoder_ffn, d)]
+        return out
+
+    out = [_conv("embed", b, tok, d, d),
+           _conv("lookahead.conv1", b, tok, d, d, cfg.pre_lookahead + 1), _conv("lookahead.conv2", b, tok, d, d, 3)]
+    out += layers("layer", cfg.encoder_layers, tok, chunks[0])
+    out += [_conv("up_layer", b, n, d, d, 2 * cfg.token_mel_ratio + 1), _conv("up_embed", b, n, d, d)]
+    out += layers("up_layer", cfg.up_layers, n, chunks[1])
+    out += [_conv("encoder_proj", b, n, d, cfg.n_feats),
+            _conv("spk_affine", b, 1, cfg.spk_embed_dim, cfg.n_feats, grad_input=False)]
+    c, ch, eh, ehd = 4 * cfg.n_feats, cfg.estimator_channels[0], cfg.estimator_heads, cfg.estimator_head_dim
+    ted, inner = 4 * ch, eh * ehd
+
+    def stage(name, dim_in):
+        out = [_conv(f"{name}.mlp", b, 1, ted, ch), _conv(f"{name}.block1", b, n, dim_in, ch, 3),
+               _conv(f"{name}.block2", b, n, ch, ch, 3), _conv(f"{name}.res_conv", b, n, dim_in, ch)]
+        for k in range(cfg.estimator_blocks):
+            out += [_conv(f"{name}.{k}.to_{x}", b, n, ch, inner) for x in "qkv"]
+            out += _pair_products(f"{name}.{k}.attention", b, eh, ehd, kept_pairs(n, chunks[1]), ("qk", "pv"))
+            out += [_conv(f"{name}.{k}.to_out", b, n, inner, ch), _conv(f"{name}.{k}.ff.proj", b, n, ch, 4 * ch),
+                    _conv(f"{name}.{k}.ff.out", b, n, 4 * ch, ch)]
+        return out
+
+    out += [_conv("time_mlp.1", b, 1, c, ted, grad_input=False), _conv("time_mlp.2", b, 1, ted, ted)]
+    out += stage("down", c) + [_conv("down.conv", b, n, ch, ch, 3)]
+    for m in range(cfg.estimator_mid):
+        out += stage(f"mid{m}", ch)
+    out += stage("up", 2 * ch) + [_conv("up.conv", b, n, ch, ch, 3)]
+    out += [_conv("final_block", b, n, ch, ch, 3), _conv("final_proj", b, n, ch, cfg.n_feats)]
+    return out
+
+
+def cosyflow_train_step_flops(cfg: CosyFlowConfig, batch: int, frames: int, streaming: bool) -> float:
+    return step_flops(cosyflow_products(cfg, batch, frames, streaming))

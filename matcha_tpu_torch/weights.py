@@ -26,10 +26,12 @@ flax layout, and the tests hold gradients against ``jax.grad``), as do
 flax ``kernel``s decay, the ``copy`` rows (embeddings, norm scales and
 biases, biases, SnakeBeta alpha/beta) do not.
 
-F5-TTS's DiT (``models/dit.py``) has no flax layout: its table
-(``F5TTS.param_table``) nests the torch names by their dots, in the kind
-``torch`` (kept as it is, and decayed), so its checkpoints keep the
-trainer's format and key paths, and every one of its leaves decays.
+F5-TTS's DiT (``models/dit.py``) and CosyVoice 2's flow stage
+(``models/cosyflow.py``) have no flax layout: their tables
+(``F5TTS.param_table``, ``CosyFlow.param_table``) nest the torch names by
+their dots, in the kind ``torch`` (kept as it is, and decayed), so their
+checkpoints keep the trainer's format and key paths, and every one of
+their leaves decays.
 ``param_table`` asks the class a config builds for its table.
 """
 

@@ -81,7 +81,8 @@ def test_kernel_wrappers_take_the_key_mask_where_the_benchmark_reads_it():
 def test_autograd_backward_is_one_call_of_the_module_attribute(monkeypatch):
     """``MaskedAttention.backward`` looks the backward up on the module when
     it runs, so a wrapper set there (the benchmark's tracer) sees one call
-    per backward, with the forward's out and lse and the key mask."""
+    per backward, with the forward's out and lse and the key mask at their
+    positions, and the forward's chunk as a keyword."""
     q, k, v, valid = map(torch.from_numpy, _inputs(4))
     valid_u8 = valid.to(torch.uint8)
     out = ta.masked_self_attention_plain(q, k, v, valid)
@@ -89,16 +90,17 @@ def test_autograd_backward_is_one_call_of_the_module_attribute(monkeypatch):
     dout = torch.ones_like(out)
     calls = []
 
-    def fake(*args):
-        calls.append(args)
+    def fake(*args, **kwargs):
+        calls.append((args, kwargs))
         return tuple(torch.full_like(x, float(i)) for i, x in enumerate(args[:3]))
 
     monkeypatch.setattr(ta, "masked_attention_bwd_dkv", fake)
-    ctx = type("Ctx", (), {"saved_tensors": (q, k, v, valid_u8, out, lse)})()
+    ctx = type("Ctx", (), {"saved_tensors": (q, k, v, valid_u8, out, lse), "chunk": 0})()
     grads = ta.MaskedAttention.backward(ctx, dout)
-    assert len(calls) == 1 and len(calls[0]) == 7
-    assert calls[0][4] is lse and calls[0][5] is out and calls[0][6] is valid_u8
-    assert [float(g[0, 0, 0, 0]) for g in grads[:3]] == [0.0, 1.0, 2.0] and grads[3] is None
+    (args, kwargs), = calls
+    assert len(args) == 7 and kwargs == {"chunk": 0}
+    assert args[4] is lse and args[5] is out and args[6] is valid_u8
+    assert [float(g[0, 0, 0, 0]) for g in grads[:3]] == [0.0, 1.0, 2.0] and grads[3:] == (None, None)
 
 
 def test_unknown_backend_raises():

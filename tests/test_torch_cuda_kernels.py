@@ -18,7 +18,9 @@ forward kernel's log-sum-exp and ``masked_attention_delta_plain``'s delta
 (bf16 dq is summed by fp32 reduce-adds in an order that changes from run
 to run, which moves it far less than its bf16 rounding); padded keys get
 dk = dv = 0 exactly; MAS indices equal (fp32 adds and maxes in one
-order).
+order).  The chunk-causal mode (``chunk`` > 0) is held to the same
+tolerances against the plain versions with the same chunk, at the flow
+estimator's (B, 8, 1504, 64) with chunk 50 and at ragged odd shapes.
 """
 
 import pytest
@@ -170,3 +172,56 @@ def test_mas_kernel_equals_plain_on_card(gen, shape, values):
     got = mas.maximum_path_indices_kernel(v, xl, yl)
     torch.cuda.synchronize()
     assert torch.equal(got, mas.maximum_path_indices_plain(v, xl, yl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk", [((21, 8, 1504, 64), 50), ((3, 5, 333, 64), 25), ((2, 3, 96, 36), 7),
+                                         ((2, 4, 200, 128), 64), ((2, 8, 130, 64), 1),
+                                         # chunk 0 at the DiT's and base-train's shapes
+                                         ((52, 16, 736, 64), 0), ((62, 5, 512, 64), 0), ((29, 5, 1088, 64), 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_kernels_match_plain_on_card(gen, shape, chunk, dtype):
+    """K1 with and without lse (each bf16 layout), the backward's launch
+    alone and through autograd, chunk-causal (or with chunk 0 at the
+    cells' shapes), against the plain versions."""
+    b, h, t, d = shape
+    dt = getattr(torch, dtype)
+    args, valid = _bwd_case(gen, shape, dt)
+    q, k, v, dout, _, _, valid_u8 = args
+    ref = ta.masked_self_attention_plain(q.float(), k.float(), v.float(), valid, chunk=chunk)
+    out = ta.masked_attention_fwd(q, k, v, valid, chunk=chunk)
+    layouts = [ta._launch_fwd(q, k, v, valid_u8, False, layout=n, chunk=chunk)[0] for n in (1, 2)] \
+        if dtype == "bfloat16" else []
+    out_l, lse = ta._launch_fwd(q, k, v, valid_u8, with_lse=True, chunk=chunk)
+    dq, dk, dv = ta.masked_attention_bwd_dkv(q, k, v, dout, lse, out_l, valid_u8, chunk=chunk)
+    torch.cuda.synchronize()
+    for got in (out, out_l, *layouts):
+        assert (got.float() - ref).abs().max().item() <= TOL[dtype]
+    assert (lse - ta.masked_attention_lse_plain(q, k, valid, chunk=chunk)).abs().max().item() <= 1e-3
+    delta = ta.masked_attention_delta_plain(dout, out_l)
+    want = ta.masked_attention_bwd_plain(q.float(), k.float(), v.float(), dout.float(), lse, delta, valid,
+                                         chunk=chunk)
+    for got, r in zip((dq, dk, dv), want):
+        assert _rel(got, r) <= TOL[dtype]
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    grads = torch.autograd.grad(ta.masked_self_attention(qg, kg, vg, valid, chunk=chunk), (qg, kg, vg), dout)
+    ref_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref_g = torch.autograd.grad(ta.masked_self_attention_plain(*ref_in, valid, chunk=chunk), ref_in, dout.float())
+    for g, r in zip(grads, ref_g):
+        assert _rel(g, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_a_chunk_as_long_as_the_rows_masks_nothing(gen):
+    """The chunked kernels with one chunk over the whole row give the
+    unchunked kernels' output, lse, dk and dv bit for bit."""
+    shape = (4, 5, 333, 64)
+    args, _ = _bwd_case(gen, shape, torch.bfloat16)
+    q, k, v, dout, _, _, valid_u8 = args
+    out0, lse0 = ta._launch_fwd(q, k, v, valid_u8, with_lse=True)
+    out1, lse1 = ta._launch_fwd(q, k, v, valid_u8, with_lse=True, chunk=shape[2])
+    _, dk0, dv0 = ta.masked_attention_bwd_dkv(q, k, v, dout, lse0, out0, valid_u8)
+    _, dk1, dv1 = ta.masked_attention_bwd_dkv(q, k, v, dout, lse1, out1, valid_u8, chunk=shape[2])
+    torch.cuda.synchronize()
+    for a, b in ((out0, out1), (lse0, lse1), (dk0, dk1), (dv0, dv1)):
+        assert torch.equal(a, b)
